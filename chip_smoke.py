@@ -36,7 +36,7 @@ SEED = 0
 DEVICE = "cuda"
 BATCH = 32                 # rows per trainer batch (two microbatches of 16)
 STEPS = 20
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, NVIDIA data sheet
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
 

@@ -28,8 +28,8 @@ distinction rather than against any concrete store:
   * ``NodeUnavailable`` (an ``IOError``) — *the bytes still exist, the path
     to them is down*. Retryable: the caller's work item fails cleanly with no
     partial result, and an identical retry succeeds once a replica answers or
-    the node returns. The DPP pool's self-healing (requeue + respawn,
-    PR 5) is the designated handler.
+    the node returns. The DPP pool's self-healing (requeue + respawn)
+    is the designated handler.
   * ``GenerationUnavailable`` (a ``KeyError``) — *the data is gone* (the
     generation was GC'd everywhere). NOT retryable: the Materializer's
     StaleGeneration remediation must re-resolve against a live generation.
@@ -39,7 +39,7 @@ serves reads from any live replica — failover is invisible to the caller
 (same bytes, same ``StaleGeneration`` semantics, leases keep pinning on the
 survivors). Only when EVERY replica of a user's chain is unreachable does the
 read raise ``NodeUnavailable`` — still the retryable class, so training
-degrades to the PR 5 self-healing path (requeue, bounded retries, surfaced
+degrades to the pool's self-healing path (requeue, bounded retries, surfaced
 abandonment) and is byte-identical to a fault-free run once a replica
 returns within the retry budget. Degradation is never silent: the store
 counts ``degraded_scans`` and the pool surfaces abandonment.

@@ -39,7 +39,7 @@ deterministic backoff WITHOUT re-running its completed siblings
 still in flight past the tier's latency quantile fires a speculative replica
 read (``hedged_reads`` / ``hedge_wins``). Only when every replica in the
 chain fails does the read raise ``NodeUnavailable`` (``degraded_scans``) —
-the *retryable* class, so the DPP pool's PR 5 self-healing takes over and
+the *retryable* class, so the DPP pool's self-healing takes over and
 output stays byte-identical once a replica returns. ``GenerationUnavailable``
 still means the data is gone (remediation), but the executor first checks the
 survivors: a pinned generation GC'd on a recovered node is served by the
@@ -49,7 +49,7 @@ replica that still retains it.
 lock. A lease therefore pins the SAME generation on every node — there is no
 interleaving where node 0 leases generation g while node 1 has already
 flipped to g+1 — which is exactly the consistency the snapshotter's
-transient lease and the streaming pin protocol (PR 3/4) assume. The lock is
+transient lease and the streaming pin protocol assume. The lock is
 never taken on the scan path: reads stay lock-free exactly like the
 monolith's. A node that is down is *excluded* from the barrier rather than
 blocking it: its missed loads queue for replay and its missed lease releases
