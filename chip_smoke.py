@@ -13,6 +13,11 @@ few AdamW steps from device-materialized batches:
   -> compact jagged payloads -> DeviceMaterializer (CUDA fused_densify)
   -> Trainer.fit
 
+The last ``PROFILE_STEPS`` steps of that run are traced with
+``torch.profiler`` (device activity only) and every step is split by CUDA
+events into gradients and AdamW, so the step's breakdown comes from the main
+path's own batches.
+
 Each phase prints one line and raises on failure; nothing falls back to the
 CPU. The line before the last is the card's name and power limit, the line
 before that a JSON object with one entry per kernel (launches on the main
@@ -36,6 +41,7 @@ SEED = 0
 DEVICE = "cuda"
 BATCH = 32                 # rows per trainer batch (two microbatches of 16)
 STEPS = 20
+PROFILE_STEPS = 5          # the main path's last steps, traced by the profiler
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, NVIDIA data sheet
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
@@ -71,6 +77,29 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 200, name: str = "") -> float:
+    """Mean device time per call of the kernels ``fn`` launches whose name
+    contains ``name`` (all of them for ""), read from a ``torch.profiler``
+    trace of ``iters`` calls: kernel durations only, no host dispatch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.key]
+    require(bool(found), f"the profiler saw no device kernel {name!r}")
+    if name:
+        n = sum(e.count for e in found)
+        require(n == iters, f"{n} {name} kernels traced for {iters} calls")
+    return sum(e.self_device_time_total for e in found) / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -170,19 +199,25 @@ def densify_phase():
 
     ms = cuda_ms(lambda: ops.fused_densify(*args))
     plain_ms = cuda_ms(lambda: ops.fused_densify_ref(*args), iters=50)
+    dev_ms = device_ms(lambda: ops.fused_densify(*args),
+                       name="fused_densify_kernel")
+    plain_dev_ms = device_ms(lambda: ops.fused_densify_ref(*args), iters=50)
     kept = int(np.minimum(lens, L).sum())
     t = main[0].shape[1]
     nbytes = (kept * t * 4 + (b + 1) * 4 + b * 8      # arena rows read, offsets, bases
               + b * L * t * 4 + b * L * 8)           # int32 block + int64 timestamps
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("kernel", f"fused_densify {ms:.6f} ms, plain version {plain_ms:.6f} "
-                  f"ms, bound {bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s; "
-                  f"bound by bytes); library_ms: null (no single PyTorch call "
-                  f"computes this function)")
+    say("kernel", f"fused_densify {ms:.6f} ms a call (device only "
+                  f"{dev_ms:.6f} ms), plain version {plain_ms:.6f} ms a call "
+                  f"(device only {plain_dev_ms:.6f} ms), bound {bound_ms:.6f} "
+                  f"ms ({nbytes} bytes at 3.35 TB/s; bound by bytes); "
+                  f"library_ms: null (no single PyTorch call computes this "
+                  f"function)")
     return {"name": "fused_densify", "route": "cuda",
             "source": "src/repro_torch/kernels/fused/csrc/fused_densify.cu",
             "replaces": "src/repro/kernels/fused/fused.py:59",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
@@ -231,41 +266,74 @@ def feed_spec():
 
 
 def recording_materializer(base):
-    """Wrap the feed's DeviceMaterializer: keep the first payload and its
-    device batch, count the payloads, the kernel launches they call for
-    (one per shared-plan group with a non-empty arena), their dense bytes
-    and their history fill."""
-    import numpy as np
-
-    from repro_torch.dpp.device_mat import densify_host
+    """Wrap the feed's DeviceMaterializer to keep every payload it is given
+    and the first device batch. It does nothing else in the transfer thread,
+    so the H2D clock times the materializer alone; the checks run after
+    training."""
 
     class Recording(type(base)):
         first = None
-        payloads = 0
-        expected_launches = 0
-        dense_bytes = 0
-        kept = 0          # history positions filled, over all payloads
-        slots = 0         # rows x seq_len, over all payloads
 
         def __call__(self, payload):
             out = super().__call__(payload)
             if self.first is None:
-                self.first = (payload, out)
-            self.payloads += 1
-            lens = np.asarray(payload["uih_len"])
-            self.kept += int(np.minimum(lens, payload["_seq_len"]).sum())
-            self.slots += len(lens) * int(payload["_seq_len"])
-            own = [k for k in payload if k.startswith("_offsets_")]
-            shared = [k for k in payload if k.startswith("_arena_")
-                      and f"_offsets_{k[len('_arena_'):]}" not in payload]
-            self.expected_launches += int(bool(shared) and lens.sum() > 0)
-            self.expected_launches += sum(
-                int(np.diff(np.asarray(payload[k])).sum() > 0) for k in own)
-            self.dense_bytes += sum(v.nbytes for v in
-                                    densify_host(payload).values())
+                self.first = out
+            self.payloads.append(payload)
             return out
 
-    return Recording(ts_trait=base.ts_trait, device=base.device)
+    rec = Recording(ts_trait=base.ts_trait, device=base.device)
+    rec.payloads = []
+    return rec
+
+
+def launches_called_for(payload) -> int:
+    """Kernel launches a payload calls for: one for its shared-plan trait
+    group and one per trait with its own offsets, each unless that arena is
+    empty."""
+    import numpy as np
+
+    lens = np.asarray(payload["uih_len"])
+    own = [k for k in payload if k.startswith("_offsets_")]
+    shared = [k for k in payload if k.startswith("_arena_")
+              and f"_offsets_{k[len('_arena_'):]}" not in payload]
+    return (int(bool(shared) and lens.sum() > 0)
+            + sum(int(np.diff(np.asarray(payload[k])).sum() > 0)
+                  for k in own))
+
+
+def timed_trainer(Trainer):
+    """The port's Trainer with each step marked by CUDA events (start,
+    gradients done, AdamW done) and its host end time, and a profiler
+    advanced after each step."""
+    import torch
+
+    class TimedTrainer(Trainer):
+        prof = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.marks = []     # per step: [start, grads done, AdamW done]
+            self.ends = []      # per step: host clock at its end
+
+        def _grads(self, batch):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = super()._grads(batch)
+            e1.record()
+            self.marks.append([e0, e1])
+            return out
+
+        def run_step(self, batch):
+            out = super().run_step(batch)   # float() of the stats syncs
+            e2 = torch.cuda.Event(enable_timing=True)
+            e2.record()
+            self.marks[-1].append(e2)
+            self.ends.append(time.perf_counter())
+            self.prof.step()
+            return out
+
+    return TimedTrainer
 
 
 def main_path_phase():
@@ -274,6 +342,8 @@ def main_path_phase():
 
     from repro_torch.configs.dlrm_uih import FULL
     from repro_torch.data import open_feed
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     from repro_torch.dpp.device_mat import densify_host
     from repro_torch.kernels.fused import ops
     from repro_torch.models import recsys as R
@@ -301,17 +371,24 @@ def main_path_phase():
                                 for v in batch.values())
         return R.dlrm_uih_loss(p, R.dlrm_uih_prep(batch, FULL), FULL)
 
-    trainer = Trainer(loss_fn, params, TrainerConfig(
+    trainer = timed_trainer(Trainer)(loss_fn, params, TrainerConfig(
         opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=STEPS),
         grad_accum=2, log_every=5))
     feed = open_feed(feed_spec(), sim, device=DEVICE)
     rec = recording_materializer(feed.prefetcher.materialize)
     feed.prefetcher.materialize = rec          # before the first get()
     torch.cuda.reset_peak_memory_stats()
+    # device activity only: recording host ops would slow the dispatch the
+    # traced steps are made of
+    trace = profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+        wait=STEPS - PROFILE_STEPS - 1, warmup=1, active=PROFILE_STEPS,
+        repeat=1))
     ops.fused_densify.launches = 0             # count the main path only
     t0 = time.perf_counter()
     try:
-        trainer.fit(feed, max_steps=STEPS)
+        with trace:
+            trainer.prof = trace
+            trainer.fit(feed, max_steps=STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.fused_densify.launches
@@ -325,14 +402,15 @@ def main_path_phase():
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     require(seen["off_card"] == 0 and seen["microbatches"] == 2 * STEPS,
             f"batch tensors off the card: {seen}")
-    groups = launches / max(rec.payloads, 1)
-    require(launches > 0 and launches == rec.expected_launches,
-            f"fused_densify launches {launches} != the {rec.expected_launches}"
-            f" the {rec.payloads} transferred payloads call for")
+    expected = sum(launches_called_for(p) for p in rec.payloads)
+    groups = launches / max(len(rec.payloads), 1)
+    require(launches > 0 and launches == expected,
+            f"fused_densify launches {launches} != the {expected} the "
+            f"{len(rec.payloads)} transferred payloads call for")
     say("main", f"fused_densify launched {launches} times for "
-                f"{rec.payloads} transferred batches ({groups:g} groups each)"
-                f", {cs.full_batches} delivered to the trainer")
-    payload, dev = rec.first
+                f"{len(rec.payloads)} transferred batches ({groups:g} groups "
+                f"each), {cs.full_batches} delivered to the trainer")
+    payload, dev = rec.payloads[0], rec.first
     host = densify_host(payload)
     require(list(dev) == list(host), "first batch keys differ from "
                                      "densify_host")
@@ -341,22 +419,68 @@ def main_path_phase():
         require(got.dtype == want.dtype and got.shape == want.shape
                 and got.tobytes() == want.tobytes(),
                 f"first batch {k!r} differs from densify_host")
+    lens = np.concatenate([np.asarray(p["uih_len"]) for p in rec.payloads])
     fill = float(np.asarray(payload["uih_len"]).clip(max=L_MAIN).mean()
                  / L_MAIN)
+    fill_all = float(lens.clip(max=L_MAIN).mean() / L_MAIN)
     say("main", f"first batch == densify_host of its payload, byte for byte "
                 f"({len(host)} keys, fill {fill:.3f}, uih_timestamp max "
                 f"{int(host['uih_timestamp'].max())}); mean fill of all "
-                f"transferred batches {rec.kept / rec.slots:.3f}")
-    require(0 < cs.h2d_bytes < rec.dense_bytes,
-            f"h2d_bytes {cs.h2d_bytes} not below dense {rec.dense_bytes}")
+                f"transferred batches {fill_all:.3f}")
+    dense_bytes = sum(v.nbytes for p in rec.payloads
+                      for v in densify_host(p).values())
+    require(0 < cs.h2d_bytes < dense_bytes,
+            f"h2d_bytes {cs.h2d_bytes} not below dense {dense_bytes}")
     say("main", f"{STEPS} AdamW steps (grad_accum 2, batch {BATCH}) in "
                 f"{wall:.3f} s = {STEPS / wall:.3f} steps/s; losses "
                 f"{losses[0]:.5f} -> {losses[-1]:.5f}, all finite; peak "
                 f"memory {peak} B; h2d {cs.h2d_bytes} B vs dense "
-                f"{rec.dense_bytes} B; starved {cs.starved_time_s:.6f} s "
+                f"{dense_bytes} B; starved {cs.starved_time_s:.6f} s "
                 f"(host {cs.starved_host_s:.6f} s, h2d "
                 f"{cs.starved_h2d_s:.6f} s), h2d time {cs.h2d_time_s:.6f} s")
+    step_profile(trainer, trace)
     return launches
+
+
+def step_profile(trainer, trace) -> None:
+    """Print where the main path's steps went: steps/s over the untraced
+    steps after two warm-up steps, the CUDA-event split of each such step,
+    and, over the traced last steps, the device's busy share, the largest
+    kernels and fused_densify's own device time on the fed batches."""
+    import torch
+
+    untraced = STEPS - PROFILE_STEPS
+    ends = trainer.ends
+    steady = range(2, untraced)        # steps 3.. of the untraced ones
+    wall = ends[untraced - 1] - ends[1]
+    split = [(m[0].elapsed_time(m[1]), m[1].elapsed_time(m[2]))
+             for m in (trainer.marks[i] for i in steady)]
+    grads_ms = sum(g for g, _ in split) / len(split)
+    opt_ms = sum(o for _, o in split) / len(split)
+    say("profile", f"steps 3-{untraced} (untraced): {len(steady)} steps in "
+                   f"{wall:.6f} s = {len(steady) / wall:.3f} steps/s; per "
+                   f"step gradients {grads_ms:.3f} ms (forward + backward of "
+                   f"two microbatches), AdamW {opt_ms:.3f} ms (with the "
+                   f"step's stats readback) (CUDA events)")
+    kernels = [e for e in trace.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(bool(kernels), "the profiler saw no device time on the main path")
+    traced_wall = ends[-1] - ends[untraced - 1]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    densify = [e for e in kernels if "fused_densify_kernel" in e.key]
+    n = sum(e.count for e in densify)
+    densify_ms = sum(e.self_device_time_total for e in densify) / 1e3
+    in_path = (f"{densify_ms / n:.6f} ms over {n} launches" if n
+               else "not launched in the window")
+    say("profile", f"steps {untraced + 1}-{STEPS} (traced): wall "
+                   f"{traced_wall:.6f} s, device kernels {busy_s:.6f} s = "
+                   f"{100 * busy_s / traced_wall:.1f}% of the wall; "
+                   f"fused_densify device time {in_path}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        per_step = e.self_device_time_total / 1e3 / PROFILE_STEPS
+        say("profile", f"{per_step:10.3f} ms/step "
+                       f"x{e.count / PROFILE_STEPS:<6g} {e.key[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -422,10 +546,10 @@ def main() -> int:
     from repro_torch.kernels.fused import ops
 
     t0 = time.perf_counter()
-    libs = build.build_all([ops.LIBRARY])
-    ptxas = [ln.strip() for lib in libs for ln in lib.build_log.splitlines()
+    ops.LIBRARY.lib()
+    ptxas = [ln.strip() for ln in ops.LIBRARY.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    say("build", f"{len(libs)} kernel libraries built in "
+    say("build", f"{ops.LIBRARY.path.name} built in "
                  f"{time.perf_counter() - t0:.3f} s into {build.BUILD_DIR}; "
                  f"ptxas: {' | '.join(ptxas) or 'cached build'}")
 
@@ -433,7 +557,8 @@ def main() -> int:
     model_check_phase()
     entry["launches"] = main_path_phase()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: entry[k] for k in keys}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

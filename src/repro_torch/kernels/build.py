@@ -5,8 +5,7 @@ it compiles in seconds without PyTorch's headers and is loaded with
 ``ctypes``. The shared library is named by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: a wrapper calls ``KernelLibrary.lib()`` the
-first time it launches, and ``build_all`` starts one ``nvcc`` per source at
-once for callers that want every kernel built up front.
+first time it launches, and that call runs ``nvcc`` if the library is missing.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build"
@@ -51,8 +50,6 @@ class KernelLibrary:
         self.functions = functions
         self.build_log = ""      # nvcc's output (ptxas register/smem report)
         self._lock = threading.Lock()
-        self._proc: Optional[subprocess.Popen] = None
-        self._tmp: Optional[Path] = None
         self._lib: Optional[ctypes.CDLL] = None
 
     @functools.cached_property
@@ -62,36 +59,28 @@ class KernelLibrary:
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.source.stem}-{digest[:12]}.so"
 
-    def start_build(self) -> None:
-        """Start ``nvcc`` in the background unless the library exists."""
-        if self.path.exists() or self._proc is not None:
+    def _build(self) -> None:
+        """Run ``nvcc`` unless the library exists; raises with nvcc's output
+        if it fails. The output lands under a temporary name and is renamed
+        into place, so a concurrent process never loads a partial file."""
+        if self.path.exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        self._tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp),
-               str(self.source)]
-        self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-
-    def wait_build(self) -> None:
-        """Finish a started build; raises with nvcc's output if it failed."""
-        proc = self._proc
-        if proc is None:
-            return
-        out, _ = proc.communicate()
-        self.build_log = out
-        self._proc = None
+        tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.build_log = proc.stdout
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source} "
-                               f"(exit {proc.returncode}):\n{out}")
-        os.replace(self._tmp, self.path)
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, self.path)
 
     def lib(self) -> ctypes.CDLL:
         """The loaded library, built first if needed (thread-safe)."""
         with self._lock:
             if self._lib is None:
-                self.start_build()
-                self.wait_build()
+                self._build()
                 lib = ctypes.CDLL(str(self.path))
                 for name, (argtypes, restype) in self.functions.items():
                     fn = getattr(lib, name)
@@ -99,17 +88,6 @@ class KernelLibrary:
                     fn.restype = restype
                 self._lib = lib
             return self._lib
-
-
-def build_all(libraries: Iterable[KernelLibrary]) -> List[KernelLibrary]:
-    """Build every library in parallel (one ``nvcc`` each, all started
-    together), then load them. Returns the libraries in order."""
-    libs = list(libraries)
-    for lib in libs:
-        lib.start_build()
-    for lib in libs:
-        lib.lib()
-    return libs
 
 
 def check(lib: KernelLibrary, status: int) -> None:
