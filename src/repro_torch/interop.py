@@ -17,9 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.recsys import DLRMUIHConfig
+from repro_torch.models.recsys import DLRMUIHConfig, TwoTowerConfig
 from repro_torch.tree import to_parameter_dict, tree_leaves, tree_map
 
+_TWO_TOWER_KEYS = ("item_mlp", "item_table", "user_mlp", "user_table")
 _DLRM_UIH_KEYS = ("action_table", "dense_proj", "item_table", "seq_blocks",
                   "seq_ln", "seq_proj", "sparse_tables", "target_proj",
                   "top_mlp")
@@ -44,6 +45,37 @@ def dlrm_uih_params_from_numpy(tree: Mapping[str, Any], cfg: DLRMUIHConfig,
            for x in tree_leaves(tree["seq_blocks"])):
         raise ValueError("seq_blocks must be stacked on axis 0 over "
                          f"{cfg.n_seq_layers} layers")
+    return to_parameter_dict(tree_map(
+        lambda a: torch.tensor(np.asarray(a, np.float32), device=device),
+        tree))
+
+
+def two_tower_params_from_numpy(tree: Mapping[str, Any], cfg: TwoTowerConfig,
+                                device: Any = "cuda") -> nn.ParameterDict:
+    """The JAX ``init_two_tower`` tree (numpy leaves) as the port's float32
+    parameters on ``device``. Raises if the tree does not fit ``cfg``."""
+    if tuple(sorted(tree)) != _TWO_TOWER_KEYS:
+        raise ValueError(f"not a two-tower parameter tree: keys "
+                         f"{sorted(tree)}")
+    d = cfg.embed_dim
+    want = {
+        ("item_table",): (cfg.item_vocab, d),
+        ("user_table",): (cfg.user_vocab, d),
+        ("user_mlp", "w0"): (2 * d, cfg.tower_mlp[0]),
+        ("item_mlp", "w0"): (d, cfg.tower_mlp[0]),
+    }
+    for path, shape in want.items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if tuple(np.shape(leaf)) != shape:
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(leaf)} does "
+                             f"not match the config's {shape}")
+    n_layers = 2 * len(cfg.tower_mlp)   # a weight and a bias per layer
+    for key in ("user_mlp", "item_mlp"):
+        if len(tree[key]) != n_layers:
+            raise ValueError(f"{key}: {len(tree[key])} leaves, the config's "
+                             f"towers {cfg.tower_mlp} need {n_layers}")
     return to_parameter_dict(tree_map(
         lambda a: torch.tensor(np.asarray(a, np.float32), device=device),
         tree))

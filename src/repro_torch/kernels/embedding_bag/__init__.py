@@ -1,0 +1,5 @@
+"""EmbeddingBag: gather + masked bag reduction (CUDA kernel, plain version)."""
+from repro_torch.kernels.embedding_bag.ops import (  # noqa: F401
+    embedding_bag,
+    embedding_bag_ref,
+)

@@ -5,6 +5,7 @@ layout: one stacked int32 arena per shared ScatterPlan, offsets, and, for a
 timestamp trait, window-relative int32 deltas plus per-row int64 bases. On
 the card ONE ``fused_densify`` launch (``csrc/fused_densify.cu``) rebuilds
 every trait's right-aligned [B, L] lanes and decodes timestamps in-window.
+``late_materialize`` composes it with ``embedding_bag`` over the id lane.
 
 dtype contract: the port keeps host dtypes. ``unpack_dense`` returns each
 lane in its host dtype: float32 rides the arena bit-cast and comes back
@@ -17,13 +18,14 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.build import KernelLibrary, check
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
 
 _I32_MAX = np.int64(2**31 - 1)
 
@@ -206,3 +208,45 @@ def unpack_dense(dense: torch.Tensor, metas: List[Tuple[str, np.dtype]],
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dt)).dtype
+
+
+def late_materialize(values: Dict[str, np.ndarray], offsets: np.ndarray,
+                     seq_len: int, *, ts_trait: Optional[str] = None,
+                     table: Optional[torch.Tensor] = None,
+                     ids_trait: Optional[str] = None,
+                     combiner: str = "sum", device: Any = "cuda"
+                     ) -> Dict[str, Any]:
+    """One-call fused pipeline: delta-decode + densify in ONE
+    ``fused_densify`` launch, then ``embedding_bag`` over the dense id lane,
+    all on ``device``.
+
+    ``values`` are flat per-trait host arenas (clipped tails) sharing
+    ``offsets``; a ``ts_trait`` arena is given in ABSOLUTE int64 and is
+    delta-encoded here (rows must be pre-clipped to ``seq_len``, the
+    featurizer contract, so the window base is the first KEPT element).
+    ``table`` must lie on ``device``. Returns ``{"lens", "mask", "traits":
+    {trait: [B, L]}, "pooled"?}``: lanes in their host dtypes, the timestamp
+    lane as exact int64 (the JAX version wraps it to int32)."""
+    device = torch.device(device)
+    offs = np.asarray(offsets, dtype=np.int64)
+    vals = dict(values)
+    ts_bases = None
+    ts_col = -1
+    if ts_trait is not None and ts_trait in vals:
+        deltas, bases64 = ts_delta_encode(vals[ts_trait], offs)
+        vals[ts_trait] = deltas
+        ts_bases = torch.from_numpy(bases64).to(device)
+        ts_col = list(vals).index(ts_trait)
+    arena, metas = pack_arena(vals)
+    offs32 = torch.from_numpy(offs.astype(np.int32)).to(device)
+    dense, ts = fused_densify(torch.from_numpy(arena).to(device), offs32,
+                              seq_len, ts_bases=ts_bases, ts_col=ts_col)
+    traits = unpack_dense(dense, metas, ts, ts_col)
+    lens = torch.clamp(torch.diff(offs32), max=seq_len).to(torch.int32)
+    j = torch.arange(seq_len, dtype=torch.int32, device=device)[None, :]
+    mask = j >= (seq_len - lens[:, None])
+    out: Dict[str, Any] = {"lens": lens, "mask": mask, "traits": traits}
+    if table is not None and ids_trait is not None:
+        out["pooled"] = embedding_bag(table, traits[ids_trait], mask,
+                                      combiner=combiner)
+    return out

@@ -1,28 +1,37 @@
-"""DLRM-UIH — the paper's flagship long-sequence ranking tenant, in PyTorch.
+"""RecSys tenants in PyTorch: two-tower retrieval and DLRM-UIH.
 
-Port of the DLRM-UIH half of ``repro.models.recsys``: DLRM feature
-interaction + a causal transformer encoder over an ultra-long UIH sequence
-with target-aware pooling. Parameters keep the reference's tree layout
+Port of the two-tower and DLRM-UIH halves of ``repro.models.recsys``.
+Two-tower retrieval (YouTube RecSys'19) encodes a user from their id and the
+mean bag of their history, and an item from its id, into L2-normalized
+vectors scored by a dot product. DLRM-UIH, the paper's flagship, is DLRM
+feature interaction + a causal transformer encoder over an ultra-long UIH
+sequence with target-aware pooling. Parameters keep the reference's tree layout
 (``seq_blocks`` stacked on axis 0), so AdamW's ``ndim >= 2`` decay mask and
 the checkpoint's leaf order match the reference. Attention scores and the
 target-attention softmax run in float32, the rest in ``compute_dtype``.
 ``remat=True`` recomputes each encoder block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant).
 
-The other tenants (two-tower, DCNv2, DIEN, BERT4Rec) come in later slices.
+The other tenants (DCNv2, DIEN, BERT4Rec) come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.embedding import init_table, lookup, mlp_apply, mlp_init
+from repro_torch.models.embedding import (
+    embedding_bag,
+    init_table,
+    lookup,
+    mlp_apply,
+    mlp_init,
+)
 from repro_torch.tree import to_parameter_dict, tree_map
 
 Params = Dict[str, Any]
@@ -45,6 +54,98 @@ def normalized_entropy(logits: torch.Tensor, labels: torch.Tensor
     h = -(p * torch.log(p) + (1 - p) * torch.log(1 - p))
     return ce / h
 
+
+# ===========================================================================
+# Two-tower retrieval
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class TwoTowerConfig:
+    name: str = "two-tower-retrieval"
+    embed_dim: int = 256
+    tower_mlp: Tuple[int, ...] = (1024, 512, 256)
+    item_vocab: int = 10_000_000
+    user_vocab: int = 20_000_000
+    uih_len: int = 100
+    temperature: float = 0.05
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def param_count(self) -> int:
+        d = self.embed_dim
+
+        def mlp(dims):
+            return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+
+        return ((self.item_vocab + self.user_vocab) * d
+                + mlp([2 * d, *self.tower_mlp]) + mlp([d, *self.tower_mlp]))
+
+
+def init_two_tower(cfg: TwoTowerConfig, seed: int = 0, device="cuda"
+                   ) -> nn.ParameterDict:
+    """Random float32 parameters from ``seed`` (a ``torch.Generator`` on
+    ``device``), in the reference's tree layout."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d = cfg.embed_dim
+    return to_parameter_dict({
+        "item_table": init_table(gen, cfg.item_vocab, d, device=device),
+        "user_table": init_table(gen, cfg.user_vocab, d, device=device),
+        # user tower input: user id emb + history bag emb
+        "user_mlp": mlp_init(gen, [2 * d, *cfg.tower_mlp], device=device),
+        # item tower input: item emb
+        "item_mlp": mlp_init(gen, [d, *cfg.tower_mlp], device=device),
+    })
+
+
+def _l2_normalize(z: torch.Tensor) -> torch.Tensor:
+    """``z / (||z|| + 1e-6)`` with the norm taken in float32 and cast back."""
+    norm = torch.linalg.vector_norm(z.float(), dim=-1, keepdim=True)
+    return z / (norm + 1e-6).to(z.dtype)
+
+
+def two_tower_user(params: Params, user_id: torch.Tensor,
+                   uih_ids: torch.Tensor, uih_mask: torch.Tensor,
+                   cfg: TwoTowerConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    u = lookup(params["user_table"], user_id, dt)
+    hist = embedding_bag(params["item_table"], uih_ids, uih_mask, "mean", dt)
+    z = mlp_apply(params["user_mlp"], torch.cat([u, hist], dim=-1),
+                  len(cfg.tower_mlp))
+    return _l2_normalize(z)
+
+
+def two_tower_item(params: Params, item_id: torch.Tensor,
+                   cfg: TwoTowerConfig) -> torch.Tensor:
+    z = lookup(params["item_table"], item_id, cfg.compute_dtype)
+    return _l2_normalize(mlp_apply(params["item_mlp"], z, len(cfg.tower_mlp)))
+
+
+def two_tower_loss(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: TwoTowerConfig,
+                   log_q: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In-batch sampled softmax with logQ correction."""
+    u = two_tower_user(params, batch["user_id"], batch["uih_item_id"],
+                       batch["uih_mask"], cfg)
+    v = two_tower_item(params, batch["cand_item_id"], cfg)
+    logits = (u @ v.T).float() / cfg.temperature                # (B, B)
+    if log_q is not None:  # correct for in-batch sampling bias
+        logits = logits - log_q[None, :]
+    logz = torch.logsumexp(logits, dim=-1)
+    return torch.mean(logz - torch.diagonal(logits))
+
+
+def two_tower_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
+                               cand_ids: torch.Tensor, cfg: TwoTowerConfig
+                               ) -> torch.Tensor:
+    """retrieval_cand: one query vs N candidates as a single batched dot."""
+    u = two_tower_user(params, batch["user_id"], batch["uih_item_id"],
+                       batch["uih_mask"], cfg)                 # (1, d)
+    v = two_tower_item(params, cand_ids, cfg)                  # (N, d)
+    return (u @ v.T) / cfg.temperature                         # (1, N)
+
+
+# ===========================================================================
+# DLRM-UIH
+# ===========================================================================
 
 @dataclasses.dataclass(frozen=True)
 class DLRMUIHConfig:
