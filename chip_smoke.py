@@ -99,30 +99,44 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 
 
 def device_ms(fn, iters: int = 200, name: str = "") -> float:
-    """Mean device time per call of the kernels ``fn`` launches whose name
+    """Device time per call of the kernels ``fn`` launches whose name
     contains ``name`` (all of them for ""), read from a ``torch.profiler``
-    trace of ``iters`` calls: kernel durations only, no host dispatch."""
+    trace of ``iters`` calls: kernel durations only, no host dispatch.
+
+    The trace may drop some kernel records, so a call's time is not the
+    trace's total over ``iters``: it is, for each distinct kernel, its mean
+    traced duration times the launches it makes a call (its traced count
+    over ``iters``, rounded; one for the kernel ``name`` names)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    # one warm-up cycle with tracing already on, so the active cycle starts
+    # with the device tracer running
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for n_calls in (10, iters):
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     found = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.key]
+             and name in e.key and e.count]
     require(bool(found), f"the profiler saw no device kernel {name!r}")
-    total_ms = sum(e.self_device_time_total for e in found) / 1e3
-    if name:
-        # one such kernel a call; the trace may miss one at its edge
-        n = sum(e.count for e in found)
-        require(0.99 * iters <= n <= iters,
-                f"{n} {name} kernels traced for {iters} calls")
-        return total_ms / n
-    return total_ms / iters
+    n = sum(e.count for e in found)
+    require(not name or n <= iters,
+            f"{n} {name} kernels traced for {iters} calls")
+    per_call = [(e.self_device_time_total / e.count,
+                 round(e.count / iters) or int(bool(name))) for e in found]
+    require(any(k for _, k in per_call),
+            f"under half of the {iters} calls' kernels were traced")
+    ms = sum(us * k for us, k in per_call) / 1e3
+    say("trace", f"{name or 'every kernel'}: {n} records over {iters} "
+                 f"calls, {sum(k for _, k in per_call)} launches a call, "
+                 f"{ms:.6f} ms a call")
+    return ms
 
 
 # ---------------------------------------------------------------------------
