@@ -5,9 +5,15 @@
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. It builds every CUDA kernel from ``src/repro_torch``
-into ``build/``, holds each kernel against its plain PyTorch version on the
-card, and drives three paths of the port over one ``ProductionSim``:
+into ``build/`` (one nvcc a source, all at once), holds each kernel against
+its plain PyTorch version on the card, and drives four paths of the port
+over one ``ProductionSim``:
 
+0. The standalone kernels: the sim's last 32 training examples, materialized
+   and featurized as the feed's host plane does (L=2048), through
+   ``jagged_to_padded`` (each trait arena, and (N, 128) float32 and bf16 row
+   blocks) and ``delta_decode`` (the timestamp lane as int64 row deltas and
+   as int32 window-relative deltas), each checked against ``to_padded()``.
 1. Train: the full-width DLRM-UIH (``configs/dlrm_uih.FULL``) for a few AdamW
    steps from device-materialized batches:
 
@@ -255,7 +261,8 @@ def densify_phase():
             "replaces": "src/repro/kernels/fused/fused.py:59",
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "library_device_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +307,315 @@ def feed_spec():
         features=FeatureSpec(seq_len=L_MAIN, uih_traits=TRAITS,
                              candidate_fields=("item_id",),
                              label_fields=("click",)))
+
+
+def featurized_batch(sim):
+    """The sim's last ``BATCH`` training examples, materialized as the
+    feed's host plane does (the spec's ``WorkerPlan`` in a ``DPPWorker``)
+    and featurized at ``L_MAIN`` with ``TRAITS``: a ``JaggedFeatures``."""
+    from repro_torch.data.compile import compile_worker_plan
+    from repro_torch.dpp.worker import DPPWorker
+
+    worker = DPPWorker.from_plan(compile_worker_plan(feed_spec(), sim))
+    return worker.process_jagged(sim.examples[-BATCH:])
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: jagged_to_padded over the featurized FULL DLRM-UIH batch
+# ---------------------------------------------------------------------------
+
+D_SEQ = 128                # FULL DLRM-UIH's d_seq: the width of a row block
+EPOCH_MS = 1_700_000_000_000   # an epoch-millisecond clock's 2023 start
+
+
+def same_bytes(got, want, what: str) -> None:
+    """Require equal dtype, shape and bytes (NaN payloads and -0.0
+    included)."""
+    import torch
+
+    g, w = (torch.as_tensor(t).cpu().contiguous() for t in (got, want))
+    require(g.dtype == w.dtype and g.shape == w.shape,
+            f"{what}: {tuple(g.shape)}/{g.dtype} vs "
+            f"{tuple(w.shape)}/{w.dtype}")
+    require(torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+            f"{what}: bytes differ")
+
+
+def jagged_edge_cases(rng, dev):
+    """name -> (values, offsets, max_len) on the card: the widths the kernel
+    moves in 4- or 1-byte words, an arena that starts mid-line, every dtype
+    width, and malformed, empty and degenerate offsets."""
+    import numpy as np
+    import torch
+
+    def case(lens, d, dtype, first=0, max_len=64, offsets_dtype=torch.int32):
+        offs = np.zeros(len(lens) + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        offs += first
+        x = rng.standard_normal((int(offs[-1]), d)) * 50
+        if dtype == torch.bool:
+            v = torch.from_numpy(x > 0)
+        elif dtype == torch.int64:
+            v = torch.from_numpy(2**40 + x.astype(np.int64))
+        else:
+            v = torch.from_numpy(x.astype(np.float32)).to(dtype)
+        return (v.to(dev), torch.from_numpy(offs).to(offsets_dtype).to(dev),
+                max_len)
+
+    over = [65, 200, 64, 1, 0, 130, 64, 500]
+    flat = torch.from_numpy(rng.standard_normal(1024 * 4 + 1).astype(
+        np.float32)).to(dev)
+    return {
+        "over-length rows": case(over, 8, torch.float32),
+        "empty rows": case([0, 9, 0, 0, 70, 0], 4, torch.float32),
+        "N == 0": case([0, 0, 0], 4, torch.float32),
+        "B == 0": case([], 4, torch.float32),
+        "bf16 D=1": case(over, 1, torch.bfloat16),
+        "bf16 D=130": case(over, 130, torch.bfloat16, offsets_dtype=torch.int64),
+        "int8 D=3": case(over, 3, torch.int8),
+        "int64 D=1 above 2^31": case(over, 1, torch.int64),
+        "bool D=5": case(over, 5, torch.bool),
+        "offsets[0] = 7": case([9, 30, 0, 5], 64, torch.float16, first=7),
+        "arena slice starting mid-line": (
+            flat[1:].view(1024, 4), torch.tensor([0, 5, 300, 301, 1024],
+                                                 device=dev), 256),
+        "negative and past-the-end segments": (
+            torch.arange(36, dtype=torch.float32, device=dev).view(12, 3),
+            torch.tensor([0, 5, 2, 12, 15, -3, 1], device=dev), 6),
+    }
+
+
+def jagged_phase(jf) -> dict:
+    """Each trait arena of the featurized batch, as its (N, 1) column over
+    its plan's int64 offsets, through ``jagged_to_padded``: each equals
+    ``to_padded()`` byte for byte. Then an (N, 128) float32 row block (NaN
+    and -0.0 in it) and its bf16 copy over int32 offsets: each equals the
+    plain version on the card, bit for bit. Those 6 launches are the
+    phase's path; the edge cases and timings come after the count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.jagged import ops as jg
+
+    dev = torch.device(DEVICE)
+    b, l, n = jf.plan.b, jf.plan.seq_len, jf.plan.total
+    rng = np.random.default_rng(SEED + 2)
+    traits = {t: (torch.from_numpy(jf.values[t]).to(dev)[:, None],
+                  torch.from_numpy(jf.plan_for(t).offsets).to(dev))
+              for t in TRAITS}
+    rows = torch.from_numpy(rng.standard_normal((n, D_SEQ)).astype(
+        np.float32)).to(dev)
+    rows[::97, 0] = math.nan
+    rows[1::89, 1] = -0.0
+    blocks = {"float32": rows, "bf16": rows.to(torch.bfloat16)}
+    offs32 = torch.from_numpy(jf.offsets.astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+
+    jg.jagged_to_padded.launches = 0           # count this path only
+    dense = {t: jg.jagged_to_padded(v, o, l) for t, (v, o) in traits.items()}
+    padded = {k: jg.jagged_to_padded(v, offs32, l) for k, v in blocks.items()}
+    torch.cuda.synchronize()
+    launches = jg.jagged_to_padded.launches
+    require(launches == len(TRAITS) + len(blocks),
+            f"jagged_to_padded launched {launches} times, want "
+            f"{len(TRAITS) + len(blocks)}")
+
+    want = jf.to_padded()
+    for t in TRAITS:
+        same_bytes(dense[t][:, :, 0], want[f"uih_{t}"],
+                   f"jagged_to_padded({t}) vs to_padded()")
+    for k, v in blocks.items():
+        same_bytes(padded[k], jg.jagged_to_padded_ref(v, offs32, l),
+                   f"jagged_to_padded {k} block vs plain version")
+    edge = jagged_edge_cases(rng, dev)
+    for name, (v, o, ml) in edge.items():
+        same_bytes(jg.jagged_to_padded(v, o, ml),
+                   jg.jagged_to_padded_ref(v, o, ml),
+                   f"jagged_to_padded {name}")
+    err = 0                      # every output matched byte for byte
+    widths = {name: jg.word_bytes(v, torch.empty((1, v.shape[1]),
+                                                 dtype=v.dtype, device=dev))
+              for name, (v, _, _) in edge.items() if v.numel()}
+    ts_max = int(want["uih_timestamp"].max())
+    say("kernel", f"jagged_to_padded over {b} featurized examples (L={l}, "
+                  f"N={n}, fill {n / (b * l):.3f}): {len(TRAITS)} trait "
+                  f"arenas ({', '.join(f'{t} {jf.values[t].dtype}' for t in TRAITS)}) "
+                  f"== to_padded() byte for byte (uih_timestamp max {ts_max}); "
+                  f"the (N, {D_SEQ}) float32 and bf16 blocks == plain version "
+                  f"bit for bit; {len(edge)} edge cases == plain version: "
+                  + ", ".join(f"{k} ({widths.get(k, 0)}-byte words)"
+                              for k in edge)
+                  + f"; {launches} launches on the path; max_abs_err {err}")
+
+    rows32 = blocks["float32"]
+    ms = cuda_ms(lambda: jg.jagged_to_padded(rows32, offs32, l))
+    dev_ms = device_ms(lambda: jg.jagged_to_padded(rows32, offs32, l),
+                       name="jagged_to_padded_kernel")
+    plain_ms = cuda_ms(lambda: jg.jagged_to_padded_ref(rows32, offs32, l),
+                       iters=50)
+    plain_dev_ms = device_ms(
+        lambda: jg.jagged_to_padded_ref(rows32, offs32, l), iters=50)
+    row = D_SEQ * 4
+    kept = int(np.minimum(np.diff(jf.offsets), l).sum())
+    nbytes = kept * row + (b + 1) * 4 + b * l * row
+    full = b * l * row + (b + 1) * 4 + b * l * row
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    yard = ""
+    if hasattr(torch.ops.aten, "_jagged_to_padded_dense_forward"):
+        left = torch.ops.aten._jagged_to_padded_dense_forward
+        y_ms = cuda_ms(lambda: left(rows32, [offs32.long()], [l]))
+        yard = (f"; for scale only, a different function (left-aligned, "
+                f"keeps the first L rows): aten._jagged_to_padded_dense_"
+                f"forward {y_ms:.6f} ms a call")
+    say("kernel", f"jagged_to_padded B={b} L={l} D={D_SEQ} float32 at fill "
+                  f"{kept / (b * l):.3f}: {ms:.6f} ms a call (device only "
+                  f"{dev_ms:.6f} ms), plain version {plain_ms:.6f} ms a call "
+                  f"(device only {plain_dev_ms:.6f} ms), bound "
+                  f"{bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s; bound by "
+                  f"bytes; full rows {full} bytes, "
+                  f"{full / HBM_BYTES_PER_S * 1e3:.6f} ms); library_ms: null "
+                  f"(no PyTorch call computes the right-aligned tail){yard}")
+    return {"name": "jagged_to_padded", "route": "cuda",
+            "source": "src/repro_torch/kernels/jagged/csrc/"
+                      "jagged_to_padded.cu",
+            "replaces": "src/repro/kernels/jagged/jagged.py:36",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "plain_device_ms": plain_dev_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "library_device_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: delta_decode over the featurized batch's timestamp lane
+# ---------------------------------------------------------------------------
+
+def timestamp_deltas(jf):
+    """The padded timestamp lane as row deltas: (B, L) int64 deltas that are
+    0 up to and at each row's first kept position, its first kept
+    timestamp (the window base, (B,) int64), the lane and its mask."""
+    import numpy as np
+
+    want = jf.to_padded()
+    ts = want["uih_timestamp"]
+    plan = jf.plan_for("timestamp")
+    b, l = ts.shape
+    first = l - plan.lens
+    mask = plan.mask
+    deltas = np.zeros_like(ts)
+    deltas[:, 1:] = ts[:, 1:] - ts[:, :-1]
+    deltas[np.arange(l)[None, :] <= first[:, None]] = 0
+    bases = np.where(plan.lens > 0, ts[np.arange(b), np.minimum(first, l - 1)],
+                     0)
+    return deltas, bases, ts, mask
+
+
+def delta_decode_phase(jf) -> dict:
+    """The batch's timestamp lane through ``delta_decode`` twice: as int64
+    row deltas with epoch-millisecond bases (all above 2^31), which decode
+    to ``to_padded()``'s timestamps on that clock under the mask, and as
+    int32 window-relative deltas with zero bases, which decode to
+    ``ts - base``. Those 2 launches are the phase's path; then every output
+    and an int32 wrap, an int64 span above 2^33 and B=1024 are held to the
+    plain version exactly, and the timings run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.delta_decode import ops as dd
+
+    dev = torch.device(DEVICE)
+    deltas, bases, ts, mask = timestamp_deltas(jf)
+    b, l = deltas.shape
+    d64 = torch.from_numpy(deltas).to(dev)
+    b64 = torch.from_numpy(bases + EPOCH_MS).to(dev)
+    require(int(b64.min()) > 2**31, "epoch bases not above 2^31")
+    d32 = d64.to(torch.int32)
+    z32 = torch.zeros(b, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+
+    dd.delta_decode.launches = 0               # count this path only
+    abs_ts = dd.delta_decode(d64, b64)
+    rel_ts = dd.delta_decode(d32, z32)
+    torch.cuda.synchronize()
+    launches = dd.delta_decode.launches
+    require(launches == 2, f"delta_decode launched {launches} times, want 2")
+
+    got = abs_ts.cpu().numpy()
+    require(got.dtype == np.int64 and np.array_equal(got[mask] - EPOCH_MS,
+                                                     ts[mask]),
+            "int64 decode differs from to_padded()'s timestamps")
+    rel_want = (ts - bases[:, None]).astype(np.int32)
+    require(np.array_equal(rel_ts.cpu().numpy()[mask], rel_want[mask]),
+            "int32 window-relative decode differs from ts - base")
+    rng = np.random.default_rng(SEED + 3)
+    wide = torch.from_numpy(rng.integers(-2**40, 2**40, (b, l))).to(dev)
+    wide[:, 1] = 2**33 + 7
+    cases = {
+        "int64 epoch timestamps": (d64, b64),
+        "int32 window-relative": (d32, z32),
+        "int32 wrap (2^30 deltas)": (torch.full_like(d32, 2**30), torch.full(
+            (b,), 2**31 - 1, dtype=torch.int32, device=dev)),
+        "int64 span above 2^33": (wide, b64),
+        "B=1024 int32": (torch.from_numpy(rng.integers(
+            -2**20, 2**20, (1024, l))).to(dev).int(), torch.from_numpy(
+            rng.integers(-2**30, 2**30, 1024)).to(dev).int()),
+    }
+    for name, args in cases.items():
+        same_bytes(dd.delta_decode(*args), dd.delta_decode_ref(*args),
+                   f"delta_decode {name} vs plain version")
+    err = 0                      # every output matched exactly
+    before = dd.delta_decode.launches
+    for shape in ((0, l), (b, 0)):
+        e = dd.delta_decode(torch.zeros(shape, dtype=torch.int32, device=dev),
+                            torch.zeros(shape[0], dtype=torch.int32,
+                                        device=dev))
+        require(e.shape == shape and e.dtype == torch.int32, "empty decode")
+    require(dd.delta_decode.launches == before, "an empty decode launched")
+    say("kernel", f"delta_decode over the batch's timestamp lane (B={b}, "
+                  f"N={l}): int64 row deltas + epoch bases (min "
+                  f"{int(b64.min())}) == to_padded()'s timestamps + "
+                  f"{EPOCH_MS} under the mask (max "
+                  f"{int(abs_ts.max())}); int32 window-relative deltas == "
+                  f"ts - base; {len(cases)} cases == plain version exactly: "
+                  f"{', '.join(cases)}; empty shapes return without a launch;"
+                  f" {launches} launches on the path; max_abs_err {err}")
+
+    def timed(d, bs, what):
+        def library():
+            return torch.cumsum(d, 1, dtype=d.dtype) + bs[:, None]
+
+        require(torch.equal(library(), dd.delta_decode(d, bs)),
+                f"torch.cumsum differs from delta_decode at {what}")
+        t = {"ms": cuda_ms(lambda: dd.delta_decode(d, bs)),
+             "device_ms": device_ms(lambda: dd.delta_decode(d, bs),
+                                    name="delta_decode_kernel"),
+             "plain_ms": cuda_ms(lambda: dd.delta_decode_ref(d, bs),
+                                 iters=50),
+             "plain_device_ms": device_ms(lambda: dd.delta_decode_ref(d, bs),
+                                          iters=50),
+             "library_ms": cuda_ms(library),
+             "library_device_ms": device_ms(library)}
+        nbytes = 2 * d.numel() * d.element_size() + bs.numel() * bs.element_size()
+        t["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        say("kernel", f"delta_decode {what}: {t['ms']:.6f} ms a call (device "
+                      f"only {t['device_ms']:.6f} ms), plain version "
+                      f"{t['plain_ms']:.6f} ms a call (device only "
+                      f"{t['plain_device_ms']:.6f} ms), torch.cumsum + base "
+                      f"{t['library_ms']:.6f} ms a call (device only "
+                      f"{t['library_device_ms']:.6f} ms), bound "
+                      f"{t['bound_ms']:.6f} ms ({nbytes} bytes at 3.35 TB/s; "
+                      f"bound by bytes)")
+        return t
+
+    main = timed(d32, z32, f"B={b} N={l} int32")
+    timed(d64, b64, f"B={b} N={l} int64")
+    timed(*cases["B=1024 int32"], f"B=1024 N={l} int32")
+    return {"name": "delta_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/delta_decode/csrc/"
+                      "delta_decode.cu",
+            "replaces": "src/repro/kernels/delta_decode/delta_decode.py:40",
+            "launches": launches, "max_abs_err": err, "bound_by": "bytes",
+            **main}
 
 
 def recording_materializer(base):
@@ -669,7 +985,8 @@ def embedding_bag_phase(table):
              "device_ms": device_ms(kernel, name="embedding_bag_kernel"),
              "plain_ms": cuda_ms(plain, iters=50),
              "plain_device_ms": device_ms(plain, iters=50),
-             "library_ms": cuda_ms(library)}
+             "library_ms": cuda_ms(library),
+             "library_device_ms": device_ms(library)}
         nbytes = (BATCH * l * d * table.element_size()   # gathered rows
                   + BATCH * l * (8 + 1)                  # int64 ids, bool mask
                   + BATCH * d * table.element_size())    # output
@@ -679,7 +996,8 @@ def embedding_bag_phase(table):
                       f"{t['device_ms']:.6f} ms), plain version "
                       f"{t['plain_ms']:.6f} ms a call (device only "
                       f"{t['plain_device_ms']:.6f} ms), F.embedding_bag "
-                      f"{t['library_ms']:.6f} ms a call, bound "
+                      f"{t['library_ms']:.6f} ms a call (device only "
+                      f"{t['library_device_ms']:.6f} ms), bound "
                       f"{t['bound_ms']:.6f} ms ({nbytes} bytes at 3.35 TB/s; "
                       f"bound by bytes); {n_sets} id sets cycled")
         return t
@@ -971,22 +1289,33 @@ def late_materialize_phase(histories, table) -> dict:
     return launches
 
 
-def pending_bounds() -> None:
-    """The least time of the two TPU kernels still to port, at the shapes
-    where they would run: bytes moved at 3.35 TB/s (both are bound by
-    bytes; their arithmetic is one add an element at most)."""
-    b, l = BATCH, L_MAIN
-    jagged = (b * l * 128 * 4          # every row's last L of D=128 float32
-              + (b + 1) * 4            # int32 offsets
-              + b * l * 128 * 4)       # (B, L, D) float32 written
-    delta = (b * l * 4 + b * 4         # (B, N) int32 deltas, (B,) int32 bases
-             + b * l * 4)              # (B, N) int32 sums written
-    for name, shape, nbytes in (
-            ("jagged_to_padded", f"B={b} L={l} D=128 float32, full rows",
-             jagged),
-            ("delta_decode", f"B={b} N={l} int32", delta)):
-        say("bounds", f"{name} (not ported) at {shape}: {nbytes} bytes, "
-                      f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
+def build_kernels() -> None:
+    """Build every kernel library at once: one nvcc a source, all started
+    together (each ``lib()`` waits on its own subprocess)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.delta_decode import ops as dd
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.fused import ops
+    from repro_torch.kernels.jagged import ops as jg
+
+    def timed_build(lib):
+        t0 = time.perf_counter()
+        lib.lib()
+        return time.perf_counter() - t0
+
+    libs = (ops.LIBRARY, eb.LIBRARY, jg.LIBRARY, dd.LIBRARY)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        seconds = list(pool.map(timed_build, libs))
+    for lib, s in zip(libs, seconds):
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("build", f"{lib.path.name} built in {s:.3f} s into "
+                     f"{build.BUILD_DIR}; ptxas: "
+                     f"{' | '.join(ptxas) or 'cached build'}")
+    say("build", f"{len(libs)} libraries in {time.perf_counter() - t0:.3f} s")
 
 
 def main() -> int:
@@ -1006,27 +1335,19 @@ def main() -> int:
                   f"{torch.cuda.device_count()}; {smi}; torch "
                   f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    from repro_torch.kernels import build
-    from repro_torch.kernels.embedding_bag import ops as eb
-    from repro_torch.kernels.fused import ops
-
-    for lib in (ops.LIBRARY, eb.LIBRARY):
-        t0 = time.perf_counter()
-        lib.lib()
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        say("build", f"{lib.path.name} built in "
-                     f"{time.perf_counter() - t0:.3f} s into "
-                     f"{build.BUILD_DIR}; ptxas: "
-                     f"{' | '.join(ptxas) or 'cached build'}")
-
-    pending_bounds()
+    build_kernels()
     densify = densify_phase()
     model_check_phase()
     t0 = time.perf_counter()
     sim = build_sim()
     say("main", f"sim built in {time.perf_counter() - t0:.3f} s: "
                 f"{len(sim.examples)} examples")
+    t0 = time.perf_counter()
+    jf = featurized_batch(sim)
+    jagged = jagged_phase(jf)
+    delta = delta_decode_phase(jf)
+    say("kernel", f"standalone kernel phases (featurize, checks, timings) in "
+                  f"{time.perf_counter() - t0:.3f} s")
     densify["launches"] = main_path_phase(sim)
     # the training path's parameters, optimizer state and feed died with
     # main_path_phase; hand their memory back before the serving tier's
@@ -1045,9 +1366,9 @@ def main() -> int:
     bag["launches"] = late["embedding_bag"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "library_device_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (densify, bag)]}))
+                                  for e in (densify, bag, jagged, delta)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Featurization: materialized UIH event batches -> fixed-shape training arrays.
 
 Pads/truncates the jagged per-example sequences into dense [B, L] arrays with a
-validity mask (host-side numpy mirror of the ``repro.kernels.jagged`` Pallas
-device kernel — see DESIGN.md §3 on where the device path takes over).
+validity mask (host-side numpy mirror of the device kernel
+``repro_torch.kernels.jagged.ops.jagged_to_padded`` — see DESIGN.md §3 on
+where the device path takes over).
 
 Two implementations coexist:
 
@@ -122,7 +123,8 @@ class JaggedFeatures:
 
     ``values[trait]`` is the flat [total] arena of clipped sequence tails and
     ``offsets`` the shared [B+1] boundaries — directly consumable by
-    ``repro.kernels.jagged.ops.jagged_to_padded`` on device; ``to_padded``
+    ``repro_torch.kernels.jagged.ops.jagged_to_padded`` on device (one
+    trait's arena as its (N, 1) column); ``to_padded``
     is the host-side equivalent (single scatter, no loops).
     """
 

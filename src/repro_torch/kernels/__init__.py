@@ -1,4 +1,7 @@
-"""Hand-written CUDA kernels for the materialization hot path (Hopper, sm_90a).
+"""Hand-written CUDA kernels for the materialization hot path (Hopper, sm_90a):
+``fused`` (``fused_densify``), ``embedding_bag``, ``jagged``
+(``jagged_to_padded``) and ``delta_decode``, one for each Pallas kernel of
+the reference.
 
 Each kernel directory holds ``csrc/<name>.cu`` (CUDA C++ with a plain C entry
 point), and ``ops.py`` (the PyTorch wrapper: launches the kernel for a CUDA

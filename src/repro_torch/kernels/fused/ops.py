@@ -71,7 +71,8 @@ def ts_delta_encode(arena: np.ndarray, offsets: np.ndarray
             or np.abs(rel).max(initial=0) > _I32_MAX):
         raise ValueError(
             "timestamp window span exceeds int32: the stripe codec's "
-            "bounded-window contract is broken (see delta_decode/ops.py)")
+            "bounded-window contract is broken (see "
+            "repro_torch.kernels.delta_decode.ops)")
     return d.astype(np.int32), bases
 
 

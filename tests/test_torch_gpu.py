@@ -14,8 +14,10 @@ from repro_torch.core.versioning import TrainingExample
 from repro_torch.dpp import device_mat
 from repro_torch.dpp.client import RebatchingClient
 from repro_torch.dpp.featurize import FeatureSpec, featurize_jagged
+from repro_torch.kernels.delta_decode import ops as dd
 from repro_torch.kernels.embedding_bag import ops as eb
 from repro_torch.kernels.fused import ops
+from repro_torch.kernels.jagged import ops as jg
 
 pytestmark = pytest.mark.gpu
 
@@ -184,3 +186,151 @@ def test_late_materialize_on_card_equals_to_padded(cuda):
     ref = eb.embedding_bag_ref(table, out["traits"]["item_id"], out["mask"],
                                "mean")
     torch.testing.assert_close(out["pooled"], ref, rtol=1e-5, atol=1e-6)
+
+
+def _jagged(rng, lens, d, dtype, first=0, offsets_dtype=torch.int64):
+    """(N, d) values of ``dtype`` over offsets of ``lens`` starting at
+    ``first`` (rows before it are never read), as card tensors."""
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    offs += first
+    x = rng.standard_normal((int(offs[-1]), d)) * 50
+    if dtype == torch.bool:
+        values = torch.from_numpy(x > 0)
+    elif dtype == torch.int64:
+        values = torch.from_numpy(2**40 + x.astype(np.int64))
+    else:
+        values = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    return values, torch.from_numpy(offs).to(offsets_dtype)
+
+
+_MAIN_LENS = list(np.random.default_rng(0).integers(0, 4096, 32))
+
+
+@pytest.mark.parametrize("lens,l,d,dtype,first,offsets_dtype", [
+    (_MAIN_LENS, 2048, 128, torch.float32, 0, torch.int32),   # main shape
+    ([3, 0, 40, 17, 1], 16, 1, torch.bfloat16, 0, torch.int32),
+    ([3, 0, 40, 17, 1], 16, 130, torch.bfloat16, 0, torch.int64),
+    ([3, 0, 40, 17, 1], 16, 3, torch.int8, 0, torch.int32),
+    ([9, 30, 0, 5], 12, 1, torch.int64, 0, torch.int64),      # > 2^31
+    ([9, 30, 0, 5], 12, 5, torch.bool, 0, torch.int32),
+    ([9, 30, 0, 5], 12, 64, torch.float16, 7, torch.int32),   # offsets[0] 7
+    ([0, 0, 0], 8, 4, torch.float32, 0, torch.int32),         # N == 0
+    ([], 8, 4, torch.float32, 0, torch.int32),                # B == 0
+])
+def test_jagged_to_padded_kernel_equals_plain_version(
+        cuda, lens, l, d, dtype, first, offsets_dtype):
+    rng = np.random.default_rng(len(lens) + d)
+    values, offs = (t.to(cuda) for t in _jagged(rng, lens, d, dtype, first,
+                                                  offsets_dtype))
+    before = jg.jagged_to_padded.launches
+    got = jg.jagged_to_padded(values, offs, l)
+    want = jg.jagged_to_padded_ref(values, offs, l)
+    torch.cuda.synchronize()
+    assert jg.jagged_to_padded.launches == before + (1 if sum(lens) else 0)
+    assert got.is_cuda and got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.uint8),
+                       want.cpu().view(torch.uint8))
+
+
+def test_jagged_to_padded_kernel_malformed_offsets(cuda):
+    """Negative lengths give zero rows; ends past the arena read its last
+    row; a negative end reads its first."""
+    values = torch.arange(36, dtype=torch.float32, device=cuda).view(12, 3)
+    offs = torch.tensor([0, 5, 2, 12, 15, -3, 1], device=cuda)
+    got = jg.jagged_to_padded(values, offs, 6)
+    want = jg.jagged_to_padded_ref(values, offs, 6)
+    assert torch.equal(got, want)
+    assert not got[1].any() and torch.equal(got[3, 5], values[11])
+
+
+def test_jagged_to_padded_kernel_misaligned_slice(cuda):
+    """An arena that is a slice starting mid-line takes 4- or 1-byte words
+    and still equals the plain version; the aligned arena takes 16."""
+    rng = np.random.default_rng(2)
+    lens = [7, 0, 33, 12]
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), device=cuda)
+    n = int(offs[-1])
+    flat = torch.from_numpy(rng.standard_normal(n * 4 + 1).astype(
+        np.float32)).to(cuda)
+    for values, width in ((flat[:-1].view(n, 4), 16),
+                          (flat[1:].view(n, 4), 4),
+                          (flat.view(torch.uint8)[1:1 + n * 4].view(n, 4), 1)):
+        got = jg.jagged_to_padded(values, offs, 16)
+        want = jg.jagged_to_padded_ref(values, offs, 16)
+        torch.cuda.synchronize()
+        assert jg.word_bytes(values, got) == width
+        assert torch.equal(got, want)
+
+
+def test_jagged_to_padded_refuses_what_it_would_copy(cuda):
+    values = torch.zeros((10, 8), device=cuda)
+    offs = torch.tensor([0, 4, 10], device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        jg.jagged_to_padded(values[:, ::2], offs, 4)
+    with pytest.raises(ValueError, match="CUDA or all on the CPU"):
+        jg.jagged_to_padded(values, offs.cpu(), 4)
+
+
+def _decode_case(rng, b, n, dtype, base0=0):
+    hi = 2**20 if dtype == torch.int32 else 2**40
+    deltas = rng.integers(-hi, hi, (b, n))
+    bases = base0 + rng.integers(-hi, hi, b)
+    return (torch.from_numpy(deltas).to(dtype),
+            torch.from_numpy(bases).to(dtype))
+
+
+@pytest.mark.parametrize("b,n,dtype,base0", [
+    (32, 2048, torch.int32, 0),            # the main path's window lane
+    (32, 2048, torch.int64, 3_000_000_000),
+    (1024, 2048, torch.int64, 0),
+    (7, 1025, torch.int32, 0),             # a partial tile
+    (3, 1, torch.int64, 2**40),
+    (0, 16, torch.int32, 0),
+    (4, 0, torch.int64, 0),
+])
+def test_delta_decode_kernel_equals_plain_version(cuda, b, n, dtype, base0):
+    rng = np.random.default_rng(b + n)
+    deltas, bases = (t.to(cuda) for t in _decode_case(rng, b, n, dtype,
+                                                      base0))
+    before = dd.delta_decode.launches
+    got = dd.delta_decode(deltas, bases)
+    want = dd.delta_decode_ref(deltas, bases)
+    torch.cuda.synchronize()
+    assert dd.delta_decode.launches == before + (1 if b and n else 0)
+    assert got.is_cuda and got.dtype == dtype and torch.equal(got, want)
+
+
+def test_delta_decode_kernel_wraps_and_carries_wide_windows(cuda):
+    """int32 wraps bit for bit; int64 spans of 2^33 are exact; mixed inputs
+    decode in int64."""
+    d32 = torch.full((3, 3000), 2**30, dtype=torch.int32, device=cuda)
+    b32 = torch.tensor([2**31 - 1, -(2**31), 5], dtype=torch.int32,
+                       device=cuda)
+    want = ((torch.cumsum(d32.long(), 1) + b32.long()[:, None]) % 2**32)
+    want = torch.where(want >= 2**31, want - 2**32, want).int()
+    assert torch.equal(dd.delta_decode(d32, b32), want)
+    d64 = torch.tensor([[0, 2**33, 5], [3, -(2**34), 2**40]], device=cuda)
+    b64 = torch.tensor([7, -9], device=cuda)
+    assert torch.equal(dd.delta_decode(d64, b64),
+                       torch.cumsum(d64, 1) + b64[:, None])
+    got = dd.delta_decode(d32, b32.long())
+    assert got.dtype == torch.int64
+    assert torch.equal(got, torch.cumsum(d32.long(), 1) + b32.long()[:, None])
+
+
+def test_wrappers_on_the_card_never_run_the_plain_versions(cuda, monkeypatch):
+    """With the plain versions broken, the card results still come right:
+    the wrappers launched their kernels."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(jg, "jagged_to_padded_ref", boom)
+    monkeypatch.setattr(dd, "delta_decode_ref", boom)
+    values = torch.arange(1.0, 4.0, device=cuda)[:, None]
+    got = jg.jagged_to_padded(values, torch.tensor([0, 1, 3], device=cuda), 2)
+    assert got[:, :, 0].tolist() == [[0.0, 1.0], [2.0, 3.0]]
+    got = dd.delta_decode(torch.tensor([[0, 1, 2]], dtype=torch.int32,
+                                       device=cuda),
+                          torch.tensor([5], dtype=torch.int32, device=cuda))
+    assert got.tolist() == [[5, 6, 8]]
