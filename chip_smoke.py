@@ -13,7 +13,9 @@ over one ``ProductionSim``:
    and featurized as the feed's host plane does (L=2048), through
    ``jagged_to_padded`` (each trait arena, and (N, 128) float32 and bf16 row
    blocks) and ``delta_decode`` (the timestamp lane as int64 row deltas and
-   as int32 window-relative deltas), each checked against ``to_padded()``.
+   as int32 window-relative deltas), each checked against ``to_padded()``;
+   then one device kernel a ``delta_decode`` call with mixed int32/int64
+   inputs, its timings, and the split of a call's host time.
 1. Train: the full-width DLRM-UIH (``configs/dlrm_uih.FULL``) for a few AdamW
    steps from device-materialized batches:
 
@@ -33,6 +35,10 @@ over one ``ProductionSim``:
      RequestCoalescer -> GenerationLease -> Materializer -> featurize
      -> two_tower_user (or a cache hit) -> CandidateIndex.top_k
 
+   Before it, ``embedding_bag`` on the server's item table: every edge
+   case against its plain version, one device kernel a call (int64 ids, a
+   bool mask, sum and mean), timings at L=100 and L=2048, and the split of
+   a call's host time.
 3. Late-materialize: the served users' histories through
    ``featurize_jagged`` and ``late_materialize`` on the server's item table
    (CUDA fused_densify, then CUDA embedding_bag with the mean combiner).
@@ -104,38 +110,72 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns_ms(kernel, library, iters: int = 200, rounds: int = 3):
+    """``cuda_ms`` of a kernel's call and of its library yardstick, taken in
+    turns (kernel, library, library, kernel), ``rounds`` times, so that a
+    slow stretch of the shared host weighs on both alike; returns the median
+    of each one's windows."""
+    import statistics
+
+    times = {kernel: [], library: []}
+    for _ in range(rounds):
+        for fn in (kernel, library, library, kernel):
+            times[fn].append(cuda_ms(fn, iters))
+    return statistics.median(times[kernel]), statistics.median(times[library])
+
+
+def traced_kernels(fn, iters: int, name: str = "", attempts: int = 4
+                   ) -> dict:
+    """``{kernel name: (records, device us)}`` of the device kernels that
+    ``iters`` calls of ``fn`` launch, from a ``torch.profiler`` trace (one
+    warm-up cycle with tracing already on, so the counted cycle starts with
+    the device tracer running). The trace drops records now and then, and
+    once in a while all of them: a trace in which no kernel whose name
+    contains ``name`` has records for half the calls is taken again, up to
+    ``attempts`` traces in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(attempts):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for n_calls in (10, iters):
+                for _ in range(n_calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        found = {e.key: (e.count, e.self_device_time_total)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count}
+        if any(name in k and 2 * n >= iters for k, (n, _) in found.items()):
+            break
+        say("trace", f"trace {attempt + 1} of {attempts} kept "
+                     f"{sum(n for n, _ in found.values())} records over "
+                     f"{iters} calls, under half"
+                     + ("; tracing again" if attempt + 1 < attempts else ""))
+    return found
+
+
 def device_ms(fn, iters: int = 200, name: str = "") -> float:
     """Device time per call of the kernels ``fn`` launches whose name
-    contains ``name`` (all of them for ""), read from a ``torch.profiler``
-    trace of ``iters`` calls: kernel durations only, no host dispatch.
+    contains ``name`` (all of them for ""), read from ``traced_kernels``:
+    kernel durations only, no host dispatch.
 
     The trace may drop some kernel records, so a call's time is not the
     trace's total over ``iters``: it is, for each distinct kernel, its mean
     traced duration times the launches it makes a call (its traced count
     over ``iters``, rounded; one for the kernel ``name`` names)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    # one warm-up cycle with tracing already on, so the active cycle starts
-    # with the device tracer running
-    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
-            wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for n_calls in (10, iters):
-            for _ in range(n_calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    found = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.key and e.count]
+    found = {k: v for k, v in traced_kernels(fn, iters, name).items()
+             if name in k}
     require(bool(found), f"the profiler saw no device kernel {name!r}")
-    n = sum(e.count for e in found)
+    n = sum(c for c, _ in found.values())
     require(not name or n <= iters,
             f"{n} {name} kernels traced for {iters} calls")
-    per_call = [(e.self_device_time_total / e.count,
-                 round(e.count / iters) or int(bool(name))) for e in found]
+    per_call = [(us / c, round(c / iters) or int(bool(name)))
+                for c, us in found.values()]
     require(any(k for _, k in per_call),
             f"under half of the {iters} calls' kernels were traced")
     ms = sum(us * k for us, k in per_call) / 1e3
@@ -143,6 +183,71 @@ def device_ms(fn, iters: int = 200, name: str = "") -> float:
                  f"calls, {sum(k for _, k in per_call)} launches a call, "
                  f"{ms:.6f} ms a call")
     return ms
+
+
+def kernels_a_call(fn, name: str, what: str, iters: int = 50) -> None:
+    """Require that each call of ``fn`` launches exactly one device kernel,
+    ``name``: every kernel a trace of ``iters`` calls records
+    (``traced_kernels``) bears that name, and their count over ``iters``
+    rounds to 1 (the trace may drop a record, never add one). Prints the
+    count."""
+    found = traced_kernels(fn, iters, name)
+    n = sum(c for c, _ in found.values())
+    per_call = round(n / iters)
+    require(all(name in k for k in found) and n <= iters and per_call == 1,
+            f"{what}: want one {name} a call, traced "
+            f"{ {k: c for k, (c, _) in found.items()} } over {iters} calls")
+    say("kernel", f"{what}: {per_call} device kernel a call ({n} records of "
+                  f"{name} over {iters} calls, no other kernel)")
+
+
+def host_us(fn, calls: int = 2000, chunk: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to return (its enqueue), on
+    ``time.perf_counter_ns``: ``calls`` calls in loops of ``chunk`` with no
+    synchronise inside a loop; the device is drained between loops, outside
+    the clock, so a full launch queue never blocks the host."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    total = 0
+    for _ in range(calls // chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / 1e3 / (calls // chunk * chunk)
+
+
+def host_split(what: str, wrapper, c_fn, c_args, library, lib_name: str,
+               alloc, like) -> None:
+    """Where a wrapper call's host time goes: (i) the wrapper's whole
+    enqueue, (ii) the cached C function alone on arguments prepared
+    beforehand (the ctypes call and the launch), (iii) the library
+    yardstick's enqueue; and, inside (i) - (ii), the output's allocation
+    ``alloc`` and the stream handle by the two candidates, for the card of
+    the tensor ``like``."""
+    import torch
+
+    dev, idx = like.device, like.get_device()
+    t = {"wrapper_us": host_us(wrapper),
+         "c_us": host_us(lambda: c_fn(*c_args)),
+         "library_us": host_us(library), "alloc_us": host_us(alloc),
+         "stream_current_us": host_us(
+             lambda: torch.cuda.current_stream(dev).cuda_stream),
+         "stream_raw_us": host_us(
+             lambda: torch._C._cuda_getCurrentRawStream(idx))}
+    say("host", f"{what}: (i) wrapper {t['wrapper_us']:.3f} us a call; (ii) "
+                f"cached C function alone {t['c_us']:.3f} us; (i) - (ii), the "
+                f"wrapper's Python, {t['wrapper_us'] - t['c_us']:.3f} us, of "
+                f"which the output's new_empty {t['alloc_us']:.3f} us and the "
+                f"stream handle {t['stream_raw_us']:.3f} us "
+                f"(torch._C._cuda_getCurrentRawStream; torch.cuda."
+                f"current_stream(device).cuda_stream {t['stream_current_us']:.3f}"
+                f" us); (iii) {lib_name} {t['library_us']:.3f} us "
+                f"(perf_counter_ns, 2000 calls, no synchronise in a loop)")
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +661,7 @@ def delta_decode_phase(jf) -> dict:
         "int32 wrap (2^30 deltas)": (torch.full_like(d32, 2**30), torch.full(
             (b,), 2**31 - 1, dtype=torch.int32, device=dev)),
         "int64 span above 2^33": (wide, b64),
+        "mixed: int32 deltas, int64 epoch bases": (d32, b64),
         "B=1024 int32": (torch.from_numpy(rng.integers(
             -2**20, 2**20, (1024, l))).to(dev).int(), torch.from_numpy(
             rng.integers(-2**30, 2**30, 1024)).to(dev).int()),
@@ -563,6 +669,8 @@ def delta_decode_phase(jf) -> dict:
     for name, args in cases.items():
         same_bytes(dd.delta_decode(*args), dd.delta_decode_ref(*args),
                    f"delta_decode {name} vs plain version")
+    require(torch.equal(dd.delta_decode(d32, b64), abs_ts),
+            "mixed-width decode differs from the int64 decode")
     err = 0                      # every output matched exactly
     before = dd.delta_decode.launches
     for shape in ((0, l), (b, 0)):
@@ -580,22 +688,28 @@ def delta_decode_phase(jf) -> dict:
                   f"{', '.join(cases)}; empty shapes return without a launch;"
                   f" {launches} launches on the path; max_abs_err {err}")
 
+    kernels_a_call(lambda: dd.delta_decode(d32, b64), "delta_decode_kernel",
+                   "delta_decode with int32 deltas and int64 bases")
+
     def timed(d, bs, what):
+        dt = torch.int64 if torch.int64 in (d.dtype, bs.dtype) else d.dtype
+
         def library():
-            return torch.cumsum(d, 1, dtype=d.dtype) + bs[:, None]
+            return torch.cumsum(d, 1, dtype=dt) + bs[:, None]
 
         require(torch.equal(library(), dd.delta_decode(d, bs)),
                 f"torch.cumsum differs from delta_decode at {what}")
-        t = {"ms": cuda_ms(lambda: dd.delta_decode(d, bs)),
-             "device_ms": device_ms(lambda: dd.delta_decode(d, bs),
-                                    name="delta_decode_kernel"),
-             "plain_ms": cuda_ms(lambda: dd.delta_decode_ref(d, bs),
-                                 iters=50),
-             "plain_device_ms": device_ms(lambda: dd.delta_decode_ref(d, bs),
-                                          iters=50),
-             "library_ms": cuda_ms(library),
-             "library_device_ms": device_ms(library)}
-        nbytes = 2 * d.numel() * d.element_size() + bs.numel() * bs.element_size()
+        t = dict(zip(("ms", "library_ms"), turns_ms(
+            lambda: dd.delta_decode(d, bs), library)))
+        t.update(device_ms=device_ms(lambda: dd.delta_decode(d, bs),
+                                     name="delta_decode_kernel"),
+                 plain_ms=cuda_ms(lambda: dd.delta_decode_ref(d, bs),
+                                  iters=50),
+                 plain_device_ms=device_ms(
+                     lambda: dd.delta_decode_ref(d, bs), iters=50),
+                 library_device_ms=device_ms(library))
+        nbytes = (d.numel() * (d.element_size() + dt.itemsize)   # in, out
+                  + bs.numel() * bs.element_size())
         t["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         say("kernel", f"delta_decode {what}: {t['ms']:.6f} ms a call (device "
                       f"only {t['device_ms']:.6f} ms), plain version "
@@ -609,7 +723,22 @@ def delta_decode_phase(jf) -> dict:
 
     main = timed(d32, z32, f"B={b} N={l} int32")
     timed(d64, b64, f"B={b} N={l} int64")
+    timed(d32, b64, f"B={b} N={l} int32 deltas, int64 bases")
     timed(*cases["B=1024 int32"], f"B=1024 N={l} int32")
+
+    launch = dd.LIBRARY.function("delta_decode_launch")
+    for d, bs, what in ((d32, z32, "int32"),
+                        (d32, b64, "int32 deltas, int64 bases")):
+        out = dd.delta_decode(d, bs)
+        args = (d.data_ptr(), d.stride(0), int(d.dtype == torch.int64),
+                bs.data_ptr(), bs.stride(0), int(bs.dtype == torch.int64),
+                b, l, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        host_split(f"delta_decode B={b} N={l} {what}",
+                   lambda: dd.delta_decode(d, bs), launch, args,
+                   lambda: torch.cumsum(d, 1, dtype=out.dtype) + bs[:, None],
+                   "torch.cumsum + base",
+                   lambda: d.new_empty((b, l), dtype=out.dtype), d)
     return {"name": "delta_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/delta_decode/csrc/"
                       "delta_decode.cu",
@@ -957,11 +1086,26 @@ def embedding_bag_phase(table):
             f32)
     compare("D=100 bf16", d100.to(torch.bfloat16),
             *bag_inputs(rng, 5, 37, 100_000, poison=True), bf16)
+    ids, mask = bag_inputs(rng, BATCH, l_main, v, poison=True)
+    compare("int32 ids", table, ids.int(), mask, f32)
+    compare("bf16 weight mask", table, ids,
+            (mask * torch.rand(mask.shape, device=mask.device)).to(
+                torch.bfloat16), f32)
+    wrapped = ids + torch.tensor([2**32, -(2**32), 3 * 2**32],
+                                 device=ids.device).repeat(l_main)[:l_main]
+    compare("int64 ids past +-2^32 (wrap, then clamp)", table, wrapped,
+            mask, f32)
     f32_err = max(e for k, e in errs.items() if "bf16" not in k)
     say("kernel", f"embedding_bag == plain version on {len(errs)} cases "
                   f"(float32 within rtol 1e-5, atol 1e-6; bf16 within 1e-2) "
                   f"over the FULL item table {v} x {d} float32; max abs err "
                   + "; ".join(f"{k}: {e:.3e}" for k, e in errs.items()))
+
+    ids, mask = bag_inputs(rng, BATCH, l_main, v)
+    for c in ("sum", "mean"):
+        kernels_a_call(lambda: eb.embedding_bag(table, ids, mask, c),
+                       "embedding_bag_kernel", f"embedding_bag {c} with int64 "
+                       f"ids and a bool mask (B={BATCH} L={l_main})")
 
     def timings(l, n_sets):
         sets = [bag_inputs(rng, BATCH, l, v) for _ in range(n_sets)]
@@ -978,22 +1122,30 @@ def embedding_bag_phase(table):
             return lambda: fn(*next(it))
 
         kernel = cycle(lambda i, m: eb.embedding_bag(table, i, m), sets)
+        mean = cycle(lambda i, m: eb.embedding_bag(table, i, m, "mean"),
+                     sets)
         plain = cycle(lambda i, m: eb.embedding_bag_ref(table, i, m), sets)
         library = cycle(lambda i, w: F.embedding_bag(
             i, table, mode="sum", per_sample_weights=w), lib_sets)
-        t = {"ms": cuda_ms(kernel),
-             "device_ms": device_ms(kernel, name="embedding_bag_kernel"),
-             "plain_ms": cuda_ms(plain, iters=50),
-             "plain_device_ms": device_ms(plain, iters=50),
-             "library_ms": cuda_ms(library),
-             "library_device_ms": device_ms(library)}
+        t = dict(zip(("ms", "library_ms"), turns_ms(kernel, library)))
+        t.update(device_ms=device_ms(kernel, name="embedding_bag_kernel"),
+                 call_device_ms=device_ms(kernel), mean_ms=cuda_ms(mean),
+                 plain_ms=cuda_ms(plain, iters=50),
+                 plain_device_ms=device_ms(plain, iters=50),
+                 library_device_ms=device_ms(library))
         nbytes = (BATCH * l * d * table.element_size()   # gathered rows
                   + BATCH * l * (8 + 1)                  # int64 ids, bool mask
                   + BATCH * d * table.element_size())    # output
         t["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        say("kernel", f"embedding_bag B={BATCH} L={l} D={d} float32 (sum): "
+        plan = eb.launch_plan(table, BATCH, l, eb.embedding_bag(table,
+                                                               *sets[0]))
+        say("kernel", f"embedding_bag B={BATCH} L={l} D={d} float32 (sum; "
+                      f"clusters of {plan['cluster']} blocks a bag, "
+                      f"{plan['vec']} values a load): "
                       f"{t['ms']:.6f} ms a call (device only "
-                      f"{t['device_ms']:.6f} ms), plain version "
+                      f"{t['device_ms']:.6f} ms; every kernel the call "
+                      f"launches {t['call_device_ms']:.6f} ms; mean "
+                      f"{t['mean_ms']:.6f} ms a call), plain version "
                       f"{t['plain_ms']:.6f} ms a call (device only "
                       f"{t['plain_device_ms']:.6f} ms), F.embedding_bag "
                       f"{t['library_ms']:.6f} ms a call (device only "
@@ -1004,6 +1156,19 @@ def embedding_bag_phase(table):
 
     main = timings(l_main, 32)     # 32 x 3.3 MB of rows: past the L2
     timings(L_MAIN, 4)
+
+    out = eb.embedding_bag(table, ids, mask)
+    args = (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            BATCH, l_main, d, v, 0, 1, 0, 0,   # float32, int64 ids, bool, sum
+            torch.cuda.current_stream(table.device).cuda_stream)
+    cids, w = ids.clamp(0, v - 1), mask.to(table.dtype)
+    host_split(f"embedding_bag B={BATCH} L={l_main} D={d} float32 (sum, "
+               f"int64 ids, bool mask)",
+               lambda: eb.embedding_bag(table, ids, mask),
+               eb.LIBRARY.function("embedding_bag_launch"), args,
+               lambda: F.embedding_bag(cids, table, mode="sum",
+                                       per_sample_weights=w),
+               "F.embedding_bag", lambda: table.new_empty((BATCH, d)), table)
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                       "embedding_bag.cu",

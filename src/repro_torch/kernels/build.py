@@ -4,8 +4,9 @@ Each ``.cu`` source under ``kernels/*/csrc`` exposes a plain C interface, so
 it compiles in seconds without PyTorch's headers and is loaded with
 ``ctypes``. The shared library is named by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
-Nothing here runs at import time: a wrapper calls ``KernelLibrary.lib()`` the
-first time it launches, and that call runs ``nvcc`` if the library is missing.
+Nothing here runs at import time: a wrapper calls ``KernelLibrary.lib()`` (or
+``function()``) the first time it launches, and that call runs ``nvcc`` if
+the library is missing.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ class KernelLibrary:
         self.functions = functions
         self.build_log = ""      # nvcc's output (ptxas register/smem report)
         self._lock = threading.Lock()
-        self._lib: Optional[ctypes.CDLL] = None
+        self._lib: Optional[ctypes.PyDLL] = None
 
     @functools.cached_property
     def path(self) -> Path:
@@ -76,18 +77,36 @@ class KernelLibrary:
                                f"(exit {proc.returncode}):\n{proc.stdout}")
         os.replace(tmp, self.path)
 
-    def lib(self) -> ctypes.CDLL:
-        """The loaded library, built first if needed (thread-safe)."""
+    def lib(self) -> ctypes.PyDLL:
+        """The loaded library, its C functions bound with their argtypes,
+        built first if needed. Once loaded, a call reads a plain attribute
+        and takes no lock; the lock guards the first build and load only."""
+        lib = self._lib
+        if lib is None:
+            lib = self._load()
+        return lib
+
+    def _load(self) -> ctypes.PyDLL:
         with self._lock:
             if self._lib is None:
                 self._build()
-                lib = ctypes.CDLL(str(self.path))
+                # PyDLL: a call keeps the GIL. A launch takes microseconds,
+                # while a released GIL may go to a busy thread for a whole
+                # switch interval (5 ms) before the launching thread gets
+                # it back.
+                lib = ctypes.PyDLL(str(self.path))
                 for name, (argtypes, restype) in self.functions.items():
                     fn = getattr(lib, name)
                     fn.argtypes = list(argtypes)
                     fn.restype = restype
                 self._lib = lib
             return self._lib
+
+    def function(self, name: str):
+        """The bound C function ``name`` (a ``ctypes`` function pointer with
+        its argtypes set): a wrapper keeps it in a module-level handle after
+        its first launch and calls it directly from then on."""
+        return getattr(self.lib(), name)
 
 
 def check(lib: KernelLibrary, status: int) -> None:

@@ -25,12 +25,20 @@ from repro_torch.kernels.build import KernelLibrary, check
 LIBRARY = KernelLibrary(
     Path(__file__).parent / "csrc" / "delta_decode.cu",
     {
-        "delta_decode_launch": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                                + [ctypes.c_void_p] * 2, ctypes.c_int),
+        "delta_decode_launch": (
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int),
+        "delta_decode_vector_path": (
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
         "cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 )
 _MAX_N = 2**31 - 2**12      # the kernel's int column index never overflows
+_WIDE = {torch.int32: 0, torch.int64: 1}    # read in their own width
+_launch = None              # delta_decode_launch, bound at the first launch
 
 
 def _decode_dtype(deltas: torch.Tensor, bases: torch.Tensor) -> torch.dtype:
@@ -53,31 +61,54 @@ def delta_decode_ref(deltas: torch.Tensor, bases: torch.Tensor
     return out.to(dt)                                   # int32: wraps
 
 
+def vector_path(deltas: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the kernel moves these card tensors' columns as 16-byte
+    vectors (every row of both starts 16-byte aligned), or scalar."""
+    return bool(LIBRARY.function("delta_decode_vector_path")(
+        deltas.data_ptr(), deltas.stride(0), _WIDE[deltas.dtype],
+        deltas.shape[1], out.data_ptr(), _WIDE[out.dtype]))
+
+
 def delta_decode(deltas: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """(B, N) deltas + (B,) bases -> (B, N) ``bases[:, None] + cumsum``.
 
     int64 if either input is int64 (exact), else int32 (wrapping); the
     result lies on the inputs' device.
 
-    Launches the CUDA kernel for CUDA tensors (counted in
-    ``delta_decode.launches``) and runs ``delta_decode_ref`` for CPU
-    tensors. ``B == 0`` or ``N == 0`` returns zeros without a launch."""
+    Launches the CUDA kernel for CUDA tensors, one launch a call (counted in
+    ``delta_decode.launches``): int32 and int64 inputs are read in their own
+    width, mixed ones too, and rows may be strided; other integer dtypes are
+    cast to the result's dtype first, and deltas whose columns are not
+    unit-stride are copied. Runs ``delta_decode_ref`` for CPU tensors.
+    ``B == 0`` or ``N == 0`` returns an empty result without a launch."""
+    global _launch
     if not runtime.use_kernel(deltas, bases):
         return delta_decode_ref(deltas, bases)
     dt = _decode_dtype(deltas, bases)
     b, n = deltas.shape
-    out = torch.empty((b, n), dtype=dt, device=deltas.device)
+    out = deltas.new_empty((b, n), dtype=dt)
     if b == 0 or n == 0:
         return out
     if n > _MAX_N:
         raise ValueError(f"delta_decode: {n} columns, at most {_MAX_N}")
-    d = deltas.to(dt).contiguous()
-    bs = bases.to(dt).contiguous()
-    stream = torch.cuda.current_stream(deltas.device).cuda_stream
-    status = LIBRARY.lib().delta_decode_launch(
-        d.data_ptr(), bs.data_ptr(), b, n, int(dt == torch.int64),
-        out.data_ptr(), stream)
-    check(LIBRARY, status)
+    d_wide = _WIDE.get(deltas.dtype)
+    if d_wide is None:                   # an explicit conversion, not a route
+        deltas, d_wide = deltas.to(dt), _WIDE[dt]
+    b_wide = _WIDE.get(bases.dtype)
+    if b_wide is None:
+        bases, b_wide = bases.to(dt), _WIDE[dt]
+    row, col = deltas.stride()
+    if col != 1 and n > 1:
+        deltas = deltas.contiguous()
+        row = n
+    launch = _launch
+    if launch is None:
+        launch = _launch = LIBRARY.function("delta_decode_launch")
+    status = launch(deltas.data_ptr(), row, d_wide,
+                    bases.data_ptr(), bases.stride(0), b_wide, b, n,
+                    out.data_ptr(), runtime.raw_stream(deltas))
+    if status:
+        check(LIBRARY, status)
     delta_decode.launches += 1
     return out
 

@@ -141,6 +141,28 @@ def test_delta_decode_dtype_dispatch(d_dtype, b_dtype, want_dtype):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "column slice"])
+@pytest.mark.parametrize("d_dtype,b_dtype", [(np.int32, np.int64),
+                                             (np.int64, np.int32)])
+def test_delta_decode_mixed_widths_match_reference(d_dtype, b_dtype, layout):
+    """Mixed int32/int64 inputs decode in int64, exactly: int32 window
+    deltas over epoch-millisecond int64 bases (above 2^31), and int64
+    deltas over int32 bases; also read from a column slice x[:, 1:]."""
+    rng = np.random.default_rng(d_dtype(0).itemsize * 10 + len(layout))
+    b, n = 8, 301
+    x = rng.integers(0, 100_000, size=(b, n + 1)).astype(d_dtype)
+    deltas = x[:, 1:] if layout == "column slice" else x[:, :n].copy()
+    hi = 1_700_000_000_000 if b_dtype == np.int64 else 2**30
+    bases = rng.integers(-hi, hi, size=b).astype(b_dtype)
+    got = _port(deltas, bases)
+    want = _reference(deltas, bases)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.cumsum(deltas.astype(np.int64), axis=1)
+        + bases.astype(np.int64)[:, None])
+
+
 @pytest.mark.parametrize("shape", [(0, 8), (3, 0), (0, 0)])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
 def test_delta_decode_empty_shapes(shape, dtype):

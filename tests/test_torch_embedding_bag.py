@@ -87,6 +87,81 @@ def test_embedding_bag_bf16_matches_reference():
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
 
 
+# int64 ids the kernel reads in their own width: each keeps its low 32 bits
+# as a signed int32 (ids.astype(int32) in the reference), then is clamped
+WIDE_IDS = {2**32 + 5: 5, -(2**32) - 1: 0, 2**31 + 3: 0, -(2**31) - 5: V - 1,
+            3 * 2**32 + V + 9: V - 1, 7: 7}
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("ids_dtype", [np.int64, np.int32])
+def test_embedding_bag_ids_wrap_then_clamp(ids_dtype, combiner):
+    """ids beyond +-2^31 wrap to int32 before the clamp, as the reference
+    casts them; int32 ids past the table clamp."""
+    rng = np.random.default_rng(ids_dtype(0).itemsize + len(combiner))
+    table, ids, mask = _bag_case(rng, 6, 9, density=0.8)
+    if ids_dtype == np.int64:
+        ids[:, :len(WIDE_IDS)] = list(WIDE_IDS)
+    else:
+        ids[:, :3] = (V + 5, -3, 2**31 - 1)
+    got, want = _both(table, ids.astype(ids_dtype), mask, combiner)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    if ids_dtype == np.int64:
+        for wide, row in WIDE_IDS.items():
+            bag = teb.embedding_bag(torch.from_numpy(table),
+                                    torch.tensor([[wide]]),
+                                    torch.ones((1, 1), dtype=torch.bool))
+            np.testing.assert_array_equal(bag[0].numpy(), table[row])
+
+
+@pytest.mark.parametrize("l,counts,hits", [
+    (300, [259, 300, 0], [1, 2, 3]),
+    (2048, [1028, 1935, 2048, 259], [4, 8, 8, 1]),
+])
+def test_embedding_bag_bf16_mean_count_rounds(l, counts, hits):
+    """A bool count above 256 rounds to bf16 before the mean divides (1028
+    is 1024, 259 is 260), in the reference and the port alike. Each bag's
+    numerator is exact (256 from each of ``hits`` positions), so the two
+    agree exactly and give bf16(num / bf16(count)), where num / count would
+    differ."""
+    table = np.zeros((V, D), np.float32)
+    table[1] = 256.0
+    ids = np.zeros((len(counts), l), np.int64)
+    mask = np.zeros((len(counts), l), bool)
+    for b, (c, h) in enumerate(zip(counts, hits)):
+        mask[b, l - c:] = True
+        ids[b, l - h:] = 1
+    got, want = _both(table, ids, mask, "mean", dtype=jnp.bfloat16)
+    np.testing.assert_array_equal(got, want)
+    num = torch.tensor([256.0 * h if c else 0.0
+                        for c, h in zip(counts, hits)]).bfloat16().float()
+    count = torch.tensor([max(c, 1) for c in counts], dtype=torch.float32)
+    exact = (num / count.bfloat16().float()).bfloat16().float().numpy()
+    np.testing.assert_array_equal(got[:, 0], exact)
+    assert not np.array_equal(
+        exact, (num / count).bfloat16().float().numpy())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("mask_dtype", [np.float32, "bfloat16"])
+def test_embedding_bag_float_mask_on_bf16_table(mask_dtype, combiner):
+    """A float mask weighs a bf16 table's rows by the mask rounded to
+    bf16, as the reference's ``mask.astype(table.dtype)``."""
+    rng = np.random.default_rng(len(combiner) + 5)
+    table, ids, mask = _bag_case(rng, 5, 11, weights=True)
+    want = jeb.embedding_bag(jnp.asarray(table, jnp.bfloat16),
+                             jnp.asarray(ids), jnp.asarray(mask), combiner)
+    m = torch.from_numpy(mask)
+    if mask_dtype == "bfloat16":
+        m = m.to(torch.bfloat16)
+    got = teb.embedding_bag(torch.from_numpy(table).to(torch.bfloat16),
+                            torch.from_numpy(ids), m, combiner)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_embedding_bag_poisoned_ids_equal_benign_ids():
     """Poisoned lanes under mask 0 give the same bag as benign ones."""
     rng = np.random.default_rng(11)

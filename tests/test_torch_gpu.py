@@ -6,6 +6,8 @@ on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from repro_torch.dpp.client import RebatchingClient
 from repro_torch.dpp.featurize import FeatureSpec, featurize_jagged
 from repro_torch.kernels.delta_decode import ops as dd
 from repro_torch.kernels.embedding_bag import ops as eb
+from repro_torch.kernels import runtime
 from repro_torch.kernels.fused import ops
 from repro_torch.kernels.jagged import ops as jg
 
@@ -334,3 +337,265 @@ def test_wrappers_on_the_card_never_run_the_plain_versions(cuda, monkeypatch):
                                        device=cuda),
                           torch.tensor([5], dtype=torch.int32, device=cuda))
     assert got.tolist() == [[5, 6, 8]]
+
+
+def _device_kernels(fn, calls=10, attempts=4):
+    """name -> records of the device kernels that ``calls`` calls of ``fn``
+    launch, from a ``torch.profiler`` trace with a warm-up cycle, as
+    ``chip_smoke.py``'s timings take it. The trace drops records now and
+    then, once in a while all of them: a trace in which no kernel has
+    records for half the calls is taken again, up to ``attempts`` traces."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(attempts):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = collections.Counter({
+            e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count})
+        if any(2 * n >= calls for n in kernels.values()):
+            break
+    return kernels
+
+
+def _one_kernel_a_call(fn, name, calls=10):
+    kernels = _device_kernels(fn, calls)
+    assert kernels and all(name in k for k in kernels), dict(kernels)
+    assert 0 < sum(kernels.values()) <= calls, dict(kernels)
+
+
+def _mask_as(mask, kind, rng):
+    """A bool mask as ``kind``: itself, or float32/bf16 weights in (0, 1]
+    under it."""
+    if kind == "bool":
+        return mask
+    w = torch.from_numpy(rng.random(tuple(mask.shape)).astype(np.float32))
+    w = (w.to(mask.device) + 0.25) * mask
+    return w.to(getattr(torch, kind))
+
+
+F32 = dict(rtol=1e-5, atol=1e-6)
+BF16 = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("mask_kind", ["bool", "float32", "bfloat16"])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_embedding_bag_kernel_reads_the_callers_dtypes(cuda, ids_dtype,
+                                                       mask_kind):
+    """int32 or int64 ids and a bool, float32 or bf16 mask: one launch a
+    call under sum and mean, equal to the plain version. int64 ids of
+    +-(2^32 + k) wrap to int32 before the clamp."""
+    rng = np.random.default_rng(len(mask_kind) + ids_dtype.itemsize)
+    table, ids, mask = (t.to(cuda) for t in _bag(rng, 32, 100, 256,
+                                                 torch.float32))
+    if ids_dtype == torch.int64:
+        ids[1:, 5] = 2**32 + 5                 # row 5
+        ids[1:, 6] = -(2**32) - 1              # -1: row 0
+        ids[1:, 7] = 2**31 + 3                 # negative: row 0
+        ids[1:, 8] = 3 * 2**32 + EB_V + 9      # EB_V + 9: row EB_V - 1
+    ids = ids.to(ids_dtype)
+    weights = _mask_as(mask, mask_kind, rng)
+    for combiner in ("sum", "mean"):
+        before = eb.embedding_bag.launches
+        got = eb.embedding_bag(table, ids, weights, combiner)
+        want = eb.embedding_bag_ref(table, ids, weights, combiner)
+        torch.cuda.synchronize()
+        assert eb.embedding_bag.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (32, 256)
+        torch.testing.assert_close(got, want, **F32)
+        _one_kernel_a_call(lambda: eb.embedding_bag(table, ids, weights,
+                                                    combiner),
+                           "embedding_bag_kernel")
+    if ids_dtype == torch.int64:               # the wrap, without the plain
+        one = torch.ones((1, 1), dtype=torch.bool, device=cuda)
+        for wide, row in ((2**32 + 5, 5), (-(2**32) - 1, 0),
+                          (2**31 + 3, 0), (3 * 2**32 + EB_V + 9, EB_V - 1)):
+            bag = eb.embedding_bag(table, torch.full((1, 1), wide,
+                                                     device=cuda), one)
+            assert torch.equal(bag[0], table[row]), (wide, row)
+
+
+@pytest.mark.parametrize("mask_kind", ["bool", "float32", "bfloat16"])
+def test_embedding_bag_kernel_bf16_table_every_mask(cuda, mask_kind):
+    """A bf16 table weighs each position by the mask rounded to bf16. The
+    table's entries are +-2^k, so every weighted row is exact in bf16 and
+    the plain version (which rounds each product) and the kernel (which
+    sums exact products in float32) differ only in summation order. A bag
+    of 100 positions of 0.3 over a row of ones sums bf16(0.3) = 0.30078125
+    a position: 30.078125, 30.125 in bf16 (30.0 unrounded)."""
+    rng = np.random.default_rng(40 + len(mask_kind))
+    _, ids, mask = (t.to(cuda) for t in _bag(rng, 16, 300, 256,
+                                             torch.bfloat16))
+    table = torch.from_numpy(rng.choice([-1.0, 1.0], (EB_V, 256)) * 2.0 **
+                             rng.integers(-3, 4, (EB_V, 256))).to(
+        torch.bfloat16).to(cuda)
+    weights = _mask_as(mask, mask_kind, rng)
+    for combiner in ("sum", "mean"):
+        got = eb.embedding_bag(table, ids, weights, combiner)
+        want = eb.embedding_bag_ref(table, ids, weights, combiner)
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+    if mask_kind != "bool":
+        ones = torch.ones((4, 256), dtype=torch.bfloat16, device=cuda)
+        w = torch.full((1, 100), 0.3, device=cuda).to(getattr(torch,
+                                                              mask_kind))
+        got = eb.embedding_bag(ones, torch.zeros((1, 100), dtype=torch.int64,
+                                                 device=cuda), w)
+        assert (got == 30.125).all()
+
+
+def test_embedding_bag_kernel_bf16_mean_count_rounds(cuda):
+    """At L=2048 a bool count above 256 rounds to bf16 before the mean
+    divides: a count of 1028 is 1024 and 259 is 260, so the kernel gives
+    exactly bf16(num / bf16(count)), where num / count would differ."""
+    l = 2048
+    table = torch.zeros((16, 256), dtype=torch.bfloat16, device=cuda)
+    table[1] = 256.0
+    counts, hits = [1028, 259, 0, 2048], [4, 1, 3, 8]
+    ids = torch.zeros((4, l), dtype=torch.int64, device=cuda)
+    mask = torch.zeros((4, l), dtype=torch.bool, device=cuda)
+    for b, (c, h) in enumerate(zip(counts, hits)):
+        mask[b, l - c:] = True
+        ids[b, l - h:] = 1                   # num = 256 * hits under the mask
+    got = eb.embedding_bag(table, ids, mask, "mean")
+    want = eb.embedding_bag_ref(table, ids, mask, "mean")
+    num = torch.tensor([256.0 * h if c else 0.0 for c, h in
+                        zip(counts, hits)]).to(torch.bfloat16)
+    den = torch.tensor([max(c, 1) for c in counts]).to(torch.bfloat16)
+    exact = (num.float() / den.float()).to(torch.bfloat16)
+    unrounded = (num.float() / torch.tensor(
+        [max(c, 1) for c in counts], dtype=torch.float32)).to(torch.bfloat16)
+    assert not torch.equal(exact, unrounded)   # the case discriminates
+    assert torch.equal(got[:, 0].cpu(), exact)
+    assert torch.equal(want[:, 0].cpu(), exact)
+    assert torch.equal(got, want)
+    assert eb.launch_plan(table, 4, l, got)["cluster"] == 8
+
+
+@pytest.mark.parametrize("b,l,cluster", [
+    (256, 100, 1),     # B fills the card alone
+    (1, 2048, 8),
+    (32, 2048, 8),     # the training history length
+    (32, 100, 4),      # late_materialize's shape
+])
+def test_embedding_bag_kernel_cluster_split(cuda, b, l, cluster):
+    rng = np.random.default_rng(b + l)
+    table, ids, mask = (t.to(cuda) for t in _bag(rng, b, l, 256,
+                                                 torch.float32))
+    for combiner in ("sum", "mean"):
+        got = eb.embedding_bag(table, ids, mask, combiner)
+        want = eb.embedding_bag_ref(table, ids, mask, combiner)
+        torch.testing.assert_close(got, want, **F32)
+        again = eb.embedding_bag(table, ids, mask, combiner)
+        assert torch.equal(got, again)           # no atomics: run to run
+    assert eb.launch_plan(table, b, l, got) == {"cluster": cluster, "vec": 4,
+                                                "chunks": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_scalar_path(cuda, dtype):
+    """A table slice that starts 8 bytes past 16-byte alignment, and bf16
+    rows of D=100 (200 bytes), take the scalar path; float32 rows of D=100
+    (400 bytes) are whole 16-byte vectors. All equal the plain version."""
+    rng = np.random.default_rng(9)
+    tol = F32 if dtype == torch.float32 else BF16
+    table, ids, mask = (t.to(cuda) for t in _bag(rng, 5, 37, 100, dtype))
+    flat = torch.from_numpy(0.01 * rng.standard_normal(
+        EB_V * 256 + 8).astype(np.float32)).to(dtype).to(cuda)
+    shifted = flat[8 // flat.element_size():][:EB_V * 256].view(EB_V, 256)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    for tab in (table, shifted):
+        for combiner in ("sum", "mean"):
+            got = eb.embedding_bag(tab, ids, mask, combiner)
+            want = eb.embedding_bag_ref(tab, ids, mask, combiner)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+        vec = 16 // dtype.itemsize
+        whole = tab is table and 100 % vec == 0
+        assert eb.launch_plan(tab, 5, 37, got)["vec"] == (vec if whole else 1)
+
+
+def test_embedding_bag_kernel_nan_row_under_weight_zero(cuda):
+    """A masked row is multiplied by zero, not skipped: a NaN row turns the
+    bag NaN, as in the plain version and the TPU kernel."""
+    table = torch.ones((8, 256), device=cuda)
+    table[3] = float("nan")
+    ids = torch.tensor([[1, 3, 2], [1, 2, 2]], device=cuda)
+    mask = torch.tensor([[True, False, True], [True, True, False]],
+                        device=cuda)
+    for combiner in ("sum", "mean"):
+        got = eb.embedding_bag(table, ids, mask, combiner)
+        want = eb.embedding_bag_ref(table, ids, mask, combiner)
+        assert got[0].isnan().all() and want[0].isnan().all()
+        assert torch.equal(got[1], want[1])
+
+
+def test_kernels_launch_on_the_callers_stream(cuda):
+    """The raw stream handle is the caller's current stream, a side stream
+    included (DevicePrefetcher launches on one), and a launch there is
+    right once that stream is synchronized."""
+    assert runtime.raw_stream(torch.zeros(1, device=cuda)) == \
+        torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(1)
+    table, ids, mask = (t.to(cuda) for t in _bag(rng, 8, 64, 256,
+                                                 torch.float32))
+    d = torch.from_numpy(rng.integers(-99, 99, (8, 64))).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert runtime.raw_stream(table) == side.cuda_stream != \
+            torch.cuda.default_stream().cuda_stream
+        bag = eb.embedding_bag(table, ids, mask, "mean")
+        dec = dd.delta_decode(d, d[:, 0])
+    side.synchronize()
+    torch.testing.assert_close(bag, eb.embedding_bag_ref(table, ids, mask,
+                                                         "mean"), **F32)
+    assert torch.equal(dec, dd.delta_decode_ref(d, d[:, 0]))
+
+
+@pytest.mark.parametrize("d_dtype,b_dtype", [(torch.int32, torch.int64),
+                                             (torch.int64, torch.int32)])
+def test_delta_decode_kernel_mixed_widths_one_launch(cuda, d_dtype, b_dtype):
+    """Mixed inputs decode in int64 with one launch and no cast."""
+    rng = np.random.default_rng(d_dtype.itemsize)
+    deltas = torch.from_numpy(rng.integers(-2**30, 2**30, (32, 2048))).to(
+        d_dtype).to(cuda)
+    bases = torch.from_numpy(3_000_000_000 + rng.integers(0, 2**30, 32)).to(
+        b_dtype).to(cuda)
+    before = dd.delta_decode.launches
+    got = dd.delta_decode(deltas, bases)
+    want = dd.delta_decode_ref(deltas, bases)
+    assert dd.delta_decode.launches == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert dd.vector_path(deltas, got)
+    _one_kernel_a_call(lambda: dd.delta_decode(deltas, bases),
+                       "delta_decode_kernel")
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["N=2047", "N=1030", "column slice"])
+def test_delta_decode_kernel_scalar_path(cuda, case, dtype):
+    """N not a multiple of 4, and a column slice x[:, 1:] read in place
+    (its rows start mid-vector), stay exact. Rows that do not start 16-byte
+    aligned take the scalar path (an even N is aligned for int64, whose
+    ragged row end is scalar); the slice is not copied (one kernel a
+    call)."""
+    rng = np.random.default_rng(len(case) + dtype.itemsize)
+    n = {"N=2047": 2047, "N=1030": 1030, "column slice": 2049}[case]
+    x = torch.from_numpy(rng.integers(-2**20, 2**20, (33, n))).to(dtype).to(
+        cuda)
+    bases = torch.from_numpy(rng.integers(-2**30, 2**30, 33)).to(dtype).to(
+        cuda)
+    deltas = x[:, 1:] if case == "column slice" else x
+    got = dd.delta_decode(deltas, bases)
+    assert torch.equal(got, dd.delta_decode_ref(deltas, bases))
+    aligned = case != "column slice" and n * dtype.itemsize % 16 == 0
+    assert dd.vector_path(deltas, got) == aligned
+    if case == "column slice":
+        _one_kernel_a_call(lambda: dd.delta_decode(deltas, bases),
+                           "delta_decode_kernel")
