@@ -6,8 +6,11 @@
 Run from the root of a checkout on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. It builds every CUDA kernel from ``src/repro_torch``
 into ``build/`` (one nvcc a source, all at once), holds each kernel against
-its plain PyTorch version on the card, and drives four paths of the port
-over one ``ProductionSim``:
+its plain PyTorch version on the card (``fused_densify`` first: at the main
+path's B=32 and at B=1024, L=2048, and on edge cases that make its plan
+take each cluster size and each lane path; one device kernel a call, times
+against the bound, the split of a call's host time), and drives four paths
+of the port over one ``ProductionSim``:
 
 0. The standalone kernels: the sim's last 32 training examples, materialized
    and featurized as the feed's host plane does (L=2048), through
@@ -130,9 +133,11 @@ def traced_kernels(fn, iters: int, name: str = "", attempts: int = 4
     ``iters`` calls of ``fn`` launch, from a ``torch.profiler`` trace (one
     warm-up cycle with tracing already on, so the counted cycle starts with
     the device tracer running). The trace drops records now and then, and
-    once in a while all of them: a trace in which no kernel whose name
-    contains ``name`` has records for half the calls is taken again, up to
-    ``attempts`` traces in all."""
+    once in a while all of them, and now and then a record of the warm-up
+    cycle lands in the counted one: a trace in which no kernel whose name
+    contains ``name`` has records for half the calls, or (for a ``name``)
+    one has more records than calls, is taken again, up to ``attempts``
+    traces in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -150,11 +155,14 @@ def traced_kernels(fn, iters: int, name: str = "", attempts: int = 4
                  for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.count}
-        if any(name in k and 2 * n >= iters for k, (n, _) in found.items()):
+        named = [n for k, (n, _) in found.items() if name in k]
+        if (any(2 * n >= iters for n in named)
+                and not (name and any(n > iters for n in named))):
             break
         say("trace", f"trace {attempt + 1} of {attempts} kept "
                      f"{sum(n for n, _ in found.values())} records over "
-                     f"{iters} calls, under half"
+                     f"{iters} calls ({name or 'every kernel'}: {named}), "
+                     f"under half or over one a call"
                      + ("; tracing again" if attempt + 1 < attempts else ""))
     return found
 
@@ -222,19 +230,21 @@ def host_us(fn, calls: int = 2000, chunk: int = 100) -> float:
 
 
 def host_split(what: str, wrapper, c_fn, c_args, library, lib_name: str,
-               alloc, like) -> None:
+               alloc, like) -> dict:
     """Where a wrapper call's host time goes: (i) the wrapper's whole
     enqueue, (ii) the cached C function alone on arguments prepared
     beforehand (the ctypes call and the launch), (iii) the library
-    yardstick's enqueue; and, inside (i) - (ii), the output's allocation
-    ``alloc`` and the stream handle by the two candidates, for the card of
-    the tensor ``like``."""
+    yardstick's enqueue (none when ``library`` is None); and, inside
+    (i) - (ii), the outputs' allocation ``alloc`` and the stream handle by
+    the two candidates, for the card of the tensor ``like``. Returns the
+    times in microseconds."""
     import torch
 
     dev, idx = like.device, like.get_device()
     t = {"wrapper_us": host_us(wrapper),
          "c_us": host_us(lambda: c_fn(*c_args)),
-         "library_us": host_us(library), "alloc_us": host_us(alloc),
+         "library_us": host_us(library) if library else None,
+         "alloc_us": host_us(alloc),
          "stream_current_us": host_us(
              lambda: torch.cuda.current_stream(dev).cuda_stream),
          "stream_raw_us": host_us(
@@ -242,22 +252,27 @@ def host_split(what: str, wrapper, c_fn, c_args, library, lib_name: str,
     say("host", f"{what}: (i) wrapper {t['wrapper_us']:.3f} us a call; (ii) "
                 f"cached C function alone {t['c_us']:.3f} us; (i) - (ii), the "
                 f"wrapper's Python, {t['wrapper_us'] - t['c_us']:.3f} us, of "
-                f"which the output's new_empty {t['alloc_us']:.3f} us and the "
+                f"which the outputs' new_empty {t['alloc_us']:.3f} us and the "
                 f"stream handle {t['stream_raw_us']:.3f} us "
                 f"(torch._C._cuda_getCurrentRawStream; torch.cuda."
                 f"current_stream(device).cuda_stream {t['stream_current_us']:.3f}"
-                f" us); (iii) {lib_name} {t['library_us']:.3f} us "
-                f"(perf_counter_ns, 2000 calls, no synchronise in a loop)")
+                f" us); (iii) "
+                + (f"{lib_name} {t['library_us']:.3f} us" if library
+                   else "no library call computes this function")
+                + " (perf_counter_ns, 2000 calls, no synchronise in a loop)")
+    return t
 
 
 # ---------------------------------------------------------------------------
 # phase 3: fused_densify against its plain version on the card
 # ---------------------------------------------------------------------------
 
-def densify_case(rng, b, seq_len, lens, ts0=None, float_lane=False):
+def densify_case(rng, b, seq_len, lens, ts0=None, float_lane=False,
+                 traits=("item_id", "action_type", "category")):
     """A packed (arena, offsets, bases, ts_col) case from numpy, laid out as
-    the main path's payloads: int64 item ids, two int32 lanes, optionally a
-    float32 lane, and a delta-encoded timestamp column from ``ts0`` on."""
+    the main path's payloads: of ``traits``, int64 item ids and int32 lanes,
+    optionally a float32 lane, and a delta-encoded timestamp column from
+    ``ts0`` on."""
     import numpy as np
 
     from repro_torch.kernels.fused import ops
@@ -268,6 +283,7 @@ def densify_case(rng, b, seq_len, lens, ts0=None, float_lane=False):
     vals = {"item_id": rng.integers(0, 10_000_000, n).astype(np.int64),
             "action_type": rng.integers(0, 16, n).astype(np.int32),
             "category": rng.integers(0, 1_000, n).astype(np.int32)}
+    vals = {k: vals[k] for k in traits}
     if float_lane:
         special = np.array([-0.0, np.inf, -np.inf, np.nan, 1e-42, -1e-42],
                            np.float32)
@@ -282,34 +298,155 @@ def densify_case(rng, b, seq_len, lens, ts0=None, float_lane=False):
     return arena, offs.astype(np.int32), bases, ts_col
 
 
-def kernel_vs_plain(case, seq_len):
-    """Run the kernel and the plain version on the same card tensors; both
-    outputs must be identical. Returns (max_abs_err, card tensors)."""
+def card_args(case, seq_len, ts=True):
+    """``fused_densify``'s arguments for a packed case on the card;
+    ``ts=False`` reads its timestamp column as a plain lane."""
+    import torch
+
+    arena, offs, bases, ts_col = case
+    dev = torch.device(DEVICE)
+    on = ts and ts_col >= 0
+    return (torch.from_numpy(arena).to(dev), torch.from_numpy(offs).to(dev),
+            seq_len, torch.from_numpy(bases).to(dev) if on else None,
+            ts_col if on else -1)
+
+
+def kernel_vs_plain(args) -> int:
+    """Run the kernel twice and the plain version on the same card tensors:
+    all three outputs must be identical. Returns the max abs error (0)."""
     import torch
 
     from repro_torch.kernels.fused import ops
 
-    arena, offs, bases, ts_col = case
-    dev = torch.device("cuda")
-    args = (torch.from_numpy(arena).to(dev), torch.from_numpy(offs).to(dev),
-            seq_len, None if bases is None else torch.from_numpy(bases).to(dev),
-            ts_col)
     got = ops.fused_densify(*args)
+    again = ops.fused_densify(*args)
     want = ops.fused_densify_ref(*args)
     torch.cuda.synchronize()
     err = 0
-    for g, w in zip(got, want):
-        require((g is None) == (w is None), "kernel/plain outputs differ")
+    for g, a, w in zip(got, again, want):
+        require((g is None) == (w is None) == (a is None),
+                "kernel/plain outputs differ")
         if g is None:
             continue
         require(g.shape == w.shape and g.dtype == w.dtype,
                 f"kernel output {g.shape}/{g.dtype} vs plain "
                 f"{w.shape}/{w.dtype}")
+        require(torch.equal(g, a), "fused_densify differs run to run")
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
     require(err == 0, f"fused_densify disagrees with its plain version: "
                       f"max abs err {err}")
-    return err, args
+    return err
+
+
+def densify_shapes():
+    """The timed shapes' packed cases, from ``SEED``: the main path's
+    (B=32, L=2048, 4 traits, timestamps from 3e9 on, rows from empty
+    through over-length) and B=1024 at fill near 0.75, bound by bytes."""
+    import numpy as np
+
+    L = 2048
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(0, 2 * L, BATCH)
+    lens[:3] = (0, L, 3 * L)
+    big = rng.integers(0, 2 * L, 1024)
+    return {f"B={BATCH}": (densify_case(rng, BATCH, L, lens,
+                                        ts0=3_000_000_000), lens),
+            "B=1024": (densify_case(rng, 1024, L, big, ts0=3_000_000_000),
+                       big)}
+
+
+def densify_bound_ms(case, lens, seq_len) -> float:
+    """The least time for a call on this case: each kept arena row, the
+    offsets and the bases read once, the int32 block and the int64
+    timestamps written once, at 3.35 TB/s."""
+    import numpy as np
+
+    arena, offs, bases, ts_col = case
+    b, t = len(lens), arena.shape[1]
+    kept = int(np.minimum(lens, seq_len).sum())
+    nbytes = (kept * t * 4 + (b + 1) * 4 + b * 8
+              + b * seq_len * t * 4 + b * seq_len * 8)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def densify_timings(shapes=None, windows: int = 6) -> dict:
+    """``fused_densify``'s times at each of ``densify_shapes``: a call (the
+    median of ``windows`` windows of 200 back-to-back calls), device only
+    with timestamps on and off (``torch.profiler``), and the bound. Uses
+    only the wrapper and its plain version, so it times whichever
+    ``repro_torch`` is first on ``sys.path``."""
+    import statistics
+
+    from repro_torch.kernels.fused import ops
+
+    out = {}
+    for name, (case, lens) in (shapes or densify_shapes()).items():
+        args = card_args(case, 2048)
+        off = card_args(case, 2048, ts=False)
+        kernel_vs_plain(args)
+        t = {"ms": statistics.median(
+                 cuda_ms(lambda: ops.fused_densify(*args))
+                 for _ in range(windows)),
+             "device_ms": device_ms(lambda: ops.fused_densify(*args),
+                                    name="fused_densify_kernel"),
+             "ts_off_device_ms": device_ms(lambda: ops.fused_densify(*off),
+                                           name="fused_densify_kernel"),
+             "bound_ms": densify_bound_ms(case, lens, 2048)}
+        say("kernel", f"fused_densify {name} L=2048 T=4: {t['ms']:.6f} ms a "
+                      f"call (median of {windows} windows), device only "
+                      f"{t['device_ms']:.6f} ms (timestamps off "
+                      f"{t['ts_off_device_ms']:.6f} ms), bound "
+                      f"{t['bound_ms']:.6f} ms (bytes at 3.35 TB/s)")
+        out[name] = t
+    return out
+
+
+def densify_edge_cases(rng):
+    """name -> card arguments: every cluster size S the plan picks, rank
+    boundaries, L not a multiple of the chunk, L under a block's threads,
+    chunks walked in tiles, empty rows, the lane-by-lane path (T=1, 3, 5)
+    and an arena off 16-byte alignment."""
+    import numpy as np
+    import torch
+
+    def case(b, seq_len, lens, **kw):
+        return card_args(densify_case(rng, b, seq_len, lens, **kw), seq_len)
+
+    ts = dict(ts0=3_000_000_000)
+    boundary = [2048 - 256 * r for r in range(8)] + [1, 255, 256, 0]
+    boundary += list(rng.integers(0, 4096, 32 - len(boundary)))
+    over = [65, 200, 64, 1, 0, 130, 64, 500]
+    misaligned = card_args(densify_case(rng, 32, 2048, rng.integers(
+        0, 4096, 32), **ts), 2048)
+    n = misaligned[0].shape[0]
+    flat = torch.zeros(n * 4 + 1, dtype=torch.int32, device=DEVICE)
+    shifted = flat[1:].view(n, 4)                 # 4 bytes past alignment
+    shifted.copy_(misaligned[0])
+    misaligned = (shifted, *misaligned[1:])
+    return {
+        "S=8: first valid position on each rank boundary, rows only in the "
+        "last rank": case(32, 2048, boundary, **ts),
+        "S=4 (L=1024)": case(32, 1024, rng.integers(0, 2048, 32), **ts),
+        "S=2 (L=512)": case(32, 512, rng.integers(0, 1024, 32), **ts),
+        "L=2049, not a multiple of the chunk": case(32, 2049, boundary, **ts),
+        "L=20, under a block's threads": case(
+            6, 20, [21, 0, 20, 5, 1, 19], **ts),
+        "tiles over 8 ranks (B=1, L=20000)": case(1, 20000, [19_223], **ts),
+        "tiles in one block (B=200, L=5000)": case(
+            200, 5000, rng.integers(0, 10_000, 200), **ts),
+        "over-length rows": case(8, 64, over),
+        "all-empty rows": case(6, 64, [0] * 6, **ts),
+        "T=5 with a float32 lane": case(5, 16, [3, 16, 0, 7, 9],
+                                        float_lane=True, **ts),
+        "T=1 timestamp lane": case(7, 300, [300, 1, 0, 299, 12, 300, 77],
+                                   traits=(), ts0=2**31 + 12_345),
+        "T=1 drift trait": case(6, 32, [31, 0, 32, 5, 2, 9],
+                                traits=("category",)),
+        "T=3": case(9, 2048, rng.integers(0, 4096, 9),
+                    traits=("item_id", "category"), **ts),
+        "arena one int32 off 16-byte alignment": misaligned,
+    }
 
 
 def densify_phase():
@@ -319,55 +456,84 @@ def densify_phase():
     from repro_torch.kernels.fused import ops
 
     L, b = 2048, BATCH
-    rng = np.random.default_rng(SEED)
-    # the main path's shape: B=32, L=2048, 4 traits, timestamp column on;
-    # rows from empty through over-length, timestamps past 2^31
-    lens = rng.integers(0, 2 * L, b)
-    lens[:3] = (0, L, 3 * L)
-    main = densify_case(rng, b, L, lens, ts0=3_000_000_000)
-    err, args = kernel_vs_plain(main, L)
-    edge = {   # name -> (case, seq_len)
-        "over-length rows": (densify_case(
-            rng, 8, 64, [65, 200, 64, 1, 0, 130, 64, 500]), 64),
-        "empty batch": (densify_case(rng, 0, 64, []), 64),
-        "all-empty rows": (densify_case(rng, 6, 64, [0] * 6, ts0=5), 64),
-        "float32 bit-cast lane": (densify_case(
-            rng, 5, 16, [3, 16, 0, 7, 9], float_lane=True), 16),
-        "timestamps above 2^31": (densify_case(
-            rng, 7, 300, [300, 1, 0, 299, 12, 300, 77], ts0=2**31 + 12_345),
-            300),
-        "drift trait, own offsets": (densify_case(
-            rng, 6, 32, [31, 0, 32, 5, 2, 9]), 32),
-    }
-    for case, seq_len in edge.values():
-        err = max(err, kernel_vs_plain(case, seq_len)[0])
-    say("kernel", f"fused_densify == plain version at B={b} L={L} T=4 "
-                  f"(ts on) and on {len(edge)} edge cases: "
-                  f"{', '.join(edge)}; max_abs_err {err}")
+    shapes = densify_shapes()
+    main_case = shapes[f"B={b}"][0]
+    err = 0
+    for case, _ in shapes.values():
+        for ts in (True, False):
+            err = max(err, kernel_vs_plain(card_args(case, L, ts)))
+    edge = densify_edge_cases(np.random.default_rng(SEED + 4))
+    empty = card_args(densify_case(np.random.default_rng(SEED), 0, 64, []),
+                      64)
+    before = ops.fused_densify.launches
+    require(ops.fused_densify(*empty)[0].shape == (0, 64, 3)
+            and ops.fused_densify.launches == before,
+            "an empty batch launched")
+    plans = {}
+    for name, args in edge.items():
+        err = max(err, kernel_vs_plain(args))
+        dense = ops.fused_densify(*args)[0]
+        p = ops.launch_plan(args[0], args[1].shape[0] - 1, args[2], dense)
+        plans[name] = f"S={p['cluster']} K={p['positions']} " + (
+            "vec" if p["vec"] else "lanes")
+    say("kernel", f"fused_densify == plain version, twice to identical "
+                  f"bytes, at B={b} and B=1024 (L={L}, T=4, timestamps on "
+                  f"and off) and on {len(edge)} edge cases: "
+                  + "; ".join(f"{k} ({v})" for k, v in plans.items())
+                  + f"; an empty batch launches nothing; max_abs_err {err}")
 
-    ms = cuda_ms(lambda: ops.fused_densify(*args))
+    args = card_args(main_case, L)
+    for ts, a in (("on", args), ("off", card_args(main_case, L, ts=False))):
+        kernels_a_call(lambda: ops.fused_densify(*a),
+                       "fused_densify_kernel",
+                       f"fused_densify B={b} L={L} T=4, timestamps {ts}")
+    times = densify_timings(shapes)
+    plan = {}
+    for name, (case, _) in shapes.items():
+        a = card_args(case, L)
+        p = ops.launch_plan(a[0], a[1].shape[0] - 1, L,
+                            ops.fused_densify(*a)[0])
+        plan[name] = p
+        say("kernel", f"fused_densify plan at {name} L={L} T=4: clusters "
+                      f"of {p['cluster']} blocks a row, {p['positions']} "
+                      f"positions a thread, {p['threads']} threads a block, "
+                      f"{p['chunk']} positions a block, "
+                      f"{'16-byte words' if p['vec'] else 'lane by lane'}")
     plain_ms = cuda_ms(lambda: ops.fused_densify_ref(*args), iters=50)
-    dev_ms = device_ms(lambda: ops.fused_densify(*args),
-                       name="fused_densify_kernel")
     plain_dev_ms = device_ms(lambda: ops.fused_densify_ref(*args), iters=50)
-    kept = int(np.minimum(lens, L).sum())
-    t = main[0].shape[1]
-    nbytes = (kept * t * 4 + (b + 1) * 4 + b * 8      # arena rows read, offsets, bases
-              + b * L * t * 4 + b * L * 8)           # int32 block + int64 timestamps
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("kernel", f"fused_densify {ms:.6f} ms a call (device only "
-                  f"{dev_ms:.6f} ms), plain version {plain_ms:.6f} ms a call "
-                  f"(device only {plain_dev_ms:.6f} ms), bound {bound_ms:.6f} "
-                  f"ms ({nbytes} bytes at 3.35 TB/s; bound by bytes); "
-                  f"library_ms: null (no single PyTorch call computes this "
-                  f"function)")
+    say("kernel", f"fused_densify plain version at B={b}: {plain_ms:.6f} ms "
+                  f"a call (device only {plain_dev_ms:.6f} ms); library_ms: "
+                  f"null (no single PyTorch call computes this function)")
+
+    dense, stamps = ops.fused_densify(*args)
+    arena, offs, _, bases, ts_col = args
+    t = arena.shape[1]
+    c_args = (arena.data_ptr(), offs.data_ptr(), bases.data_ptr(),
+              dense.data_ptr(), stamps.data_ptr(), b, L, t, ts_col,
+              torch.cuda.current_stream(arena.device).cuda_stream)
+    host = host_split(f"fused_densify B={b} L={L} T=4 (timestamps on)",
+                      lambda: ops.fused_densify(*args),
+                      ops.LIBRARY.function("fused_densify_launch"), c_args,
+                      None, "", lambda: (arena.new_empty((b, L, t)),
+                                         arena.new_empty((b, L),
+                                                         dtype=torch.int64)),
+                      arena)
+    main, big = times[f"B={b}"], times["B=1024"]
     return {"name": "fused_densify", "route": "cuda",
             "source": "src/repro_torch/kernels/fused/csrc/fused_densify.cu",
             "replaces": "src/repro/kernels/fused/fused.py:59",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "library_device_ms": None}
+            "max_abs_err": err, "ms": main["ms"],
+            "device_ms": main["device_ms"], "plain_ms": plain_ms,
+            "plain_device_ms": plain_dev_ms, "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "library_device_ms": None,
+            "more": {"cluster": plan[f"B={b}"]["cluster"],
+                     "ts_off_device_ms": main["ts_off_device_ms"],
+                     "wrapper_us": host["wrapper_us"], "c_us": host["c_us"],
+                     "b1024_ms": big["ms"],
+                     "b1024_device_ms": big["device_ms"],
+                     "b1024_bound_ms": big["bound_ms"],
+                     "b1024_cluster": plan["B=1024"]["cluster"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1532,7 +1698,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+    print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
+                                   **e.get("more", {})}
                                   for e in (densify, bag, jagged, delta)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,12 +28,15 @@ from repro_torch.kernels.build import KernelLibrary, check
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 
 _I32_MAX = np.int64(2**31 - 1)
+_launch = None          # fused_densify_launch, bound at the first launch
 
 LIBRARY = KernelLibrary(
     Path(__file__).parent / "csrc" / "fused_densify.cu",
     {
         "fused_densify_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                                  + [ctypes.c_void_p], ctypes.c_int),
+        "fused_densify_plan": ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                               + [ctypes.POINTER(ctypes.c_int)], None),
         "cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 )
@@ -137,6 +140,21 @@ def fused_densify_ref(arena: torch.Tensor, offsets: torch.Tensor,
     return dense, ts
 
 
+def launch_plan(arena: torch.Tensor, b: int, seq_len: int,
+                dense: torch.Tensor) -> dict:
+    """How the kernel lays out a call of ``b`` rows of ``seq_len`` over
+    these card tensors: ``cluster``, the blocks (1, 2, 4 or 8) of the
+    thread-block cluster that split each row; ``positions``, the positions
+    a thread holds (1, 2, 4 or 8, 32 apart); ``threads`` a block;
+    ``chunk``, the positions a block owns; ``vec``, whether a position's
+    lanes move as 16-byte words (else lane by lane)."""
+    plan = (ctypes.c_int * 5)()
+    LIBRARY.function("fused_densify_plan")(
+        b, seq_len, arena.shape[1], arena.data_ptr(), dense.data_ptr(), plan)
+    return {"cluster": plan[0], "positions": plan[1], "threads": plan[2],
+            "chunk": plan[3], "vec": bool(plan[4])}
+
+
 def fused_densify(arena: torch.Tensor, offsets: torch.Tensor, seq_len: int,
                   ts_bases: Optional[torch.Tensor] = None, ts_col: int = -1
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -147,10 +165,11 @@ def fused_densify(arena: torch.Tensor, offsets: torch.Tensor, seq_len: int,
     (B, L) int64 decoded timestamp lane (``dense[..., ts_col]`` holds its
     int32 wrap); else ``ts`` is None.
 
-    Launches the CUDA kernel for CUDA tensors (counted in
-    ``fused_densify.launches``) and runs ``fused_densify_ref`` for CPU
+    Launches the CUDA kernel for CUDA tensors, one launch a call (counted
+    in ``fused_densify.launches``), and runs ``fused_densify_ref`` for CPU
     tensors. An empty batch, ``seq_len == 0``, ``T == 0`` or an empty arena
     (all rows empty) returns zeros without a launch."""
+    global _launch
     inputs = [arena, offsets] + ([ts_bases] if ts_bases is not None else [])
     if not runtime.use_kernel(*inputs):
         return fused_densify_ref(arena, offsets, seq_len, ts_bases, ts_col)
@@ -170,18 +189,18 @@ def fused_densify(arena: torch.Tensor, offsets: torch.Tensor, seq_len: int,
                         or not ts_bases.is_contiguous()):
         raise TypeError("fused_densify: ts_bases must be a contiguous (B,) "
                         "int64 tensor when ts_col >= 0")
-    dense = torch.empty((b, seq_len, t), dtype=torch.int32,
-                        device=arena.device)
-    ts = (torch.empty((b, seq_len), dtype=torch.int64, device=arena.device)
+    dense = arena.new_empty((b, seq_len, t))
+    ts = (arena.new_empty((b, seq_len), dtype=torch.int64)
           if ts_col >= 0 else None)
-    stream = torch.cuda.current_stream(arena.device).cuda_stream
-    lib = LIBRARY.lib()
-    status = lib.fused_densify_launch(
-        arena.data_ptr(), offsets.data_ptr(),
-        ts_bases.data_ptr() if ts is not None else None,
-        dense.data_ptr(), ts.data_ptr() if ts is not None else None,
-        b, seq_len, t, ts_col, stream)
-    check(LIBRARY, status)
+    launch = _launch
+    if launch is None:
+        launch = _launch = LIBRARY.function("fused_densify_launch")
+    status = launch(arena.data_ptr(), offsets.data_ptr(),
+                    ts_bases.data_ptr() if ts is not None else None,
+                    dense.data_ptr(), ts.data_ptr() if ts is not None else None,
+                    b, seq_len, t, ts_col, runtime.raw_stream(arena))
+    if status:
+        check(LIBRARY, status)
     fused_densify.launches += 1
     return dense, ts
 

@@ -37,6 +37,7 @@ LIBRARY = KernelLibrary(
     },
 )
 _OFFSET_DTYPES = (torch.int32, torch.int64)
+_launch = None          # jagged_to_padded_launch, bound at the first launch
 
 
 def _check(values: torch.Tensor, offsets: torch.Tensor, max_len: int
@@ -89,6 +90,7 @@ def jagged_to_padded(values: torch.Tensor, offsets: torch.Tensor,
     ``jagged_to_padded.launches``) and runs ``jagged_to_padded_ref`` for CPU
     tensors. ``B == 0``, ``max_len == 0``, ``D == 0`` or ``N == 0`` returns
     zeros without a launch."""
+    global _launch
     if not runtime.use_kernel(values, offsets):
         return jagged_to_padded_ref(values, offsets, max_len)
     _check(values, offsets, max_len)
@@ -102,11 +104,15 @@ def jagged_to_padded(values: torch.Tensor, offsets: torch.Tensor,
     if b == 0 or max_len == 0 or d == 0 or n == 0:
         return out.zero_()
     offs = offsets.contiguous()
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    status = LIBRARY.lib().jagged_to_padded_launch(
-        values.data_ptr(), offs.data_ptr(), int(offs.dtype == torch.int64),
-        n, b, max_len, d * values.element_size(), out.data_ptr(), stream)
-    check(LIBRARY, status)
+    launch = _launch
+    if launch is None:
+        launch = _launch = LIBRARY.function("jagged_to_padded_launch")
+    status = launch(values.data_ptr(), offs.data_ptr(),
+                    int(offs.dtype == torch.int64), n, b, max_len,
+                    d * values.element_size(), out.data_ptr(),
+                    runtime.raw_stream(values))
+    if status:
+        check(LIBRARY, status)
     jagged_to_padded.launches += 1
     return out
 

@@ -172,3 +172,61 @@ def test_fused_densify_cpu_route_does_not_launch():
     tfu.fused_densify(torch.ones((3, 2), dtype=torch.int32),
                       torch.tensor([0, 1, 3], dtype=torch.int32), 2)
     assert tfu.fused_densify.launches == before
+
+
+def _lanes(rng, lens, t, ts_at=None, ts0=0, float_lane=False):
+    """``t`` traits over rows of ``lens``: int32 lanes over the full int32
+    range, one float32 lane of -0.0/inf/NaN/denormals when ``float_lane``,
+    and at index ``ts_at`` an int64 timestamp trait from ``ts0`` on."""
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    n = int(offs[-1])
+    vals = {}
+    for i in range(t):
+        if i == ts_at:
+            vals["timestamp"] = np.concatenate(
+                [ts0 + np.sort(rng.integers(0, 10**9, int(k))) for k in lens]
+            ).astype(np.int64) if n else np.zeros(0, np.int64)
+        elif float_lane and i == t - 1:
+            special = np.array([-0.0, np.inf, -np.inf, np.nan, 1e-42,
+                                -1e-42, 2.5], np.float32)
+            vals[f"f{i}"] = np.resize(special, n)
+        else:
+            vals[f"lane{i}"] = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    return vals, offs
+
+
+# The kernel's boundary shapes on the card (tests/test_torch_gpu.py), here at
+# small L: a row split over ranks of a cluster meets their boundaries, a
+# block has more threads than L has positions, and a position's lanes move
+# as 16-byte words (T a multiple of 4) or lane by lane (T = 1, 3, 5).
+DENSIFY_BOUNDARIES = {
+    # name: (lens, seq_len, t, ts_at, float_lane)
+    "first valid position on a rank boundary": ([16, 32, 48, 64], 64, 4, 3,
+                                                 False),
+    "valid positions only in the last rank": ([1, 3, 0, 7], 64, 4, 0, False),
+    "L not a multiple of the chunk": ([33, 17, 0, 32, 1], 33, 4, 3, False),
+    "L smaller than a block's threads": ([5, 0, 2, 5], 5, 4, 3, False),
+    "all-empty rows": ([0, 0, 0], 16, 4, 3, False),
+    "T=1 timestamp lane alone": ([9, 0, 12, 1], 12, 1, 0, False),
+    "T=1 drift trait, no timestamps": ([9, 0, 12, 1], 12, 1, None, False),
+    "T=3": ([9, 0, 12, 11], 12, 3, 1, False),
+    "T=5 with a float32 lane": ([9, 3, 12, 0], 12, 5, 0, True),
+    "T=8, two 16-byte words": ([20, 7, 0, 19], 20, 8, 5, False),
+}
+
+
+@pytest.mark.parametrize("ts0", [0, 3_000_000_000])
+@pytest.mark.parametrize("name", list(DENSIFY_BOUNDARIES))
+def test_fused_densify_boundary_shapes_parity(name, ts0):
+    """Each boundary shape of the card kernel, through the port's plain
+    version and the reference's Pallas kernel (interpret mode): the int32
+    block equals the reference's, every lane equals the host's exactly
+    (timestamps as exact int64, above 2^31 included)."""
+    lens, seq_len, t, ts_at, float_lane = DENSIFY_BOUNDARIES[name]
+    rng = np.random.default_rng(len(name) + t)
+    vals, offs = _lanes(rng, lens, t, ts_at, ts0, float_lane)
+    got, host = _assert_parity(vals, offs, seq_len, with_ts=ts_at is not None)
+    for k in host:
+        np.testing.assert_array_equal(got[k].view(np.uint8),
+                                      host[k].view(np.uint8), err_msg=k)

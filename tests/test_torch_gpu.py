@@ -65,6 +65,182 @@ def test_fused_densify_kernel_equals_plain_version(cuda, seq_len, lens):
         assert torch.equal(g, w)
 
 
+def _lanes_arena(rng, lens, t, ts_at=None, ts0=3_000_000_000,
+                 float_lane=False, first=0):
+    """A packed (arena, offsets, bases, ts_col) over rows of ``lens``: ``t``
+    int32 lanes over the full int32 range, the last a float32 lane of
+    -0.0/inf/NaN/denormals when ``float_lane``, and at index ``ts_at``
+    delta-encoded timestamps from ``ts0`` on. ``first`` junk rows come
+    before the rows (offsets start there; the kernel never reads them)."""
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    n = int(offs[-1])
+    vals = {}
+    for i in range(t):
+        if i == ts_at:
+            vals["timestamp"] = np.concatenate(
+                [ts0 + np.sort(rng.integers(0, 10**9, int(k))) for k in lens]
+            ).astype(np.int64)
+        elif float_lane and i == t - 1:
+            special = np.array([-0.0, np.inf, -np.inf, np.nan, 1e-42,
+                                -1e-42, 2.5], np.float32)
+            vals[f"f{i}"] = np.resize(special, n)
+        else:
+            vals[f"lane{i}"] = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    bases, ts_col = None, -1
+    if ts_at is not None:
+        vals["timestamp"], bases = ops.ts_delta_encode(vals["timestamp"],
+                                                       offs)
+        ts_col = ts_at
+    arena, _ = ops.pack_arena(vals)
+    junk = rng.integers(-2**31, 2**31, (first, t)).astype(np.int32)
+    return (np.concatenate([junk, arena]), (offs + first).astype(np.int32),
+            bases, ts_col)
+
+
+def _on_card(cuda, case, seq_len, ts=True):
+    """``fused_densify``'s arguments on the card; ``ts=False`` reads the
+    timestamp column as a plain lane."""
+    arena, offs, bases, ts_col = case
+    on = ts and ts_col >= 0
+    return (torch.from_numpy(arena).to(cuda), torch.from_numpy(offs).to(cuda),
+            seq_len, torch.from_numpy(bases).to(cuda) if on else None,
+            ts_col if on else -1)
+
+
+def _densify_exact(args):
+    """The kernel twice and the plain version on ``args``: two launches, and
+    all three results identical to the bit (the kernel has no atomics)."""
+    before = ops.fused_densify.launches
+    got = ops.fused_densify(*args)
+    again = ops.fused_densify(*args)
+    want = ops.fused_densify_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.fused_densify.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        if w is None:
+            assert g is None and a is None
+            continue
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w) and torch.equal(a, g)
+    return got
+
+
+@pytest.mark.parametrize("b,seq_len,cluster,positions", [
+    (32, 2048, 8, 1),      # the main path's shape
+    (32, 1024, 4, 1),
+    (32, 512, 2, 1),
+    (1024, 2048, 1, 8),    # bound by bytes: B fills the card alone
+    (32, 100, 1, 1),       # late_materialize's shape
+    (1, 20000, 8, 8),      # chunks longer than 8 x 256: tiles, ranks
+    (200, 5000, 1, 8),     # ... tiles in one block
+])
+def test_fused_densify_kernel_cluster_plan(cuda, b, seq_len, cluster,
+                                           positions):
+    """Each cluster size S the plan picks, timestamps on and off, equals
+    the plain version exactly and run to run; rows run from empty past
+    over-length, timestamps above 2^31."""
+    rng = np.random.default_rng(b + seq_len)
+    lens = rng.integers(0, 2 * seq_len, b)
+    if b >= 3:
+        lens[:3] = (0, seq_len, 3 * seq_len)
+    else:
+        lens[0] = seq_len - 777             # first valid mid-rank
+    case = _lanes_arena(rng, lens, 4, ts_at=3)
+    for ts in (True, False):
+        args = _on_card(cuda, case, seq_len, ts)
+        dense, _ = _densify_exact(args)
+        plan = ops.launch_plan(args[0], b, seq_len, dense)
+        assert (plan["cluster"], plan["positions"], plan["vec"]) == (
+            cluster, positions, True), plan
+
+
+def test_fused_densify_kernel_rank_boundaries(cuda):
+    """At B=32, L=2048 (S=8, ranks of 256 positions): rows whose first valid
+    position falls exactly on each rank boundary, rows valid only in the
+    last rank, empty rows. L=2049 is not a multiple of the chunk (257), and
+    L=100 and L=20 have fewer positions than a block's threads."""
+    rng = np.random.default_rng(5)
+    on_rank = [2048 - 256 * r for r in range(8)]
+    last_rank = [1, 2, 255, 256, 0, 0]
+    lens = on_rank + last_rank + list(rng.integers(0, 4096, 32 - 14))
+    for seq_len, want in ((2048, (8, 256, 256)), (2049, (8, 257, 160)),
+                          (100, (1, 100, 128)), (20, (1, 20, 32))):
+        ls = np.minimum(lens, seq_len + 1) if seq_len < 256 else lens
+        case = _lanes_arena(rng, ls, 4, ts_at=3)
+        _densify_exact(_on_card(cuda, case, seq_len, ts=False))
+        args = _on_card(cuda, case, seq_len)
+        dense, stamps = _densify_exact(args)
+        plan = ops.launch_plan(args[0], 32, seq_len, dense)
+        assert (plan["cluster"], plan["chunk"], plan["threads"]) == want
+        assert int(stamps.max()) > 2**31
+        stamps = stamps.cpu().numpy()
+        first = seq_len - np.minimum(np.asarray(ls), seq_len)
+        for b in np.flatnonzero(first < seq_len):   # valid from `first` on
+            assert stamps[b, first[b]] != 0 and not stamps[b, :first[b]].any()
+
+
+def test_fused_densify_kernel_all_empty_rows(cuda):
+    """Empty rows over a non-empty arena (offsets start 7 rows in): one
+    launch, all zeros, nothing read."""
+    case = _lanes_arena(np.random.default_rng(6), [0] * 6, 4, ts_at=2,
+                        first=7)
+    for seq_len in (2048, 64):
+        for ts in (True, False):
+            dense, stamps = _densify_exact(_on_card(cuda, case, seq_len, ts))
+            assert not dense.any() and (stamps is None or not stamps.any())
+
+
+@pytest.mark.parametrize("t,ts_at,float_lane", [
+    (1, 0, False),      # a timestamp trait alone
+    (1, None, False),   # a drift trait with its own offsets
+    (3, 1, False),
+    (5, 0, True),       # a float32 lane: -0.0, inf, NaN, denormals
+    (8, 5, False),      # two 16-byte words a position
+])
+def test_fused_densify_kernel_lane_layouts(cuda, t, ts_at, float_lane):
+    """T not a multiple of 4 moves lane by lane (the scalar path), T=8 as
+    two 16-byte words; both exact, at S=8 and S=1."""
+    rng = np.random.default_rng(t * 10 + (ts_at or 0))
+    for b, seq_len in ((32, 2048), (8, 300)):
+        lens = rng.integers(0, 2 * seq_len, b)
+        args = _on_card(cuda, _lanes_arena(rng, lens, t, ts_at,
+                                           float_lane=float_lane), seq_len)
+        dense, _ = _densify_exact(args)
+        plan = ops.launch_plan(args[0], b, seq_len, dense)
+        assert plan["vec"] == (t % 4 == 0)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_fused_densify_kernel_misaligned_arena(cuda, t):
+    """The arena as a row slice starting one row in (T=1: 4 bytes past an
+    aligned pointer), and for T=4 a flat slice one int32 in, whose rows are
+    off 16-byte alignment: the scalar path, exact."""
+    rng = np.random.default_rng(40 + t)
+    lens = rng.integers(0, 4096, 32)
+    arena, offs, bases, ts_col = _lanes_arena(rng, lens, t, ts_at=t - 1)
+    n = len(arena)
+    flat = torch.zeros(n * t + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(n, t)
+    shifted.copy_(torch.from_numpy(arena).to(cuda))
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    args = (shifted, torch.from_numpy(offs).to(cuda), 2048,
+            torch.from_numpy(bases).to(cuda), ts_col)
+    dense, _ = _densify_exact(args)
+    assert not ops.launch_plan(shifted, 32, 2048, dense)["vec"]
+
+
+@pytest.mark.parametrize("ts", [True, False])
+def test_fused_densify_kernel_one_launch_a_call(cuda, ts):
+    """The main path's shape, timestamps on and off: one device kernel a
+    call and no other (the outputs' allocation launches nothing)."""
+    rng = np.random.default_rng(8)
+    case = _lanes_arena(rng, rng.integers(0, 4096, 32), 4, ts_at=3)
+    args = _on_card(cuda, case, 2048, ts)
+    _one_kernel_a_call(lambda: ops.fused_densify(*args),
+                       "fused_densify_kernel")
+
+
 def test_materializer_on_card_equals_densify_host(cuda):
     rng = np.random.default_rng(24)
     spec = FeatureSpec(seq_len=7, uih_traits=("item_id", "flag", "timestamp"),
@@ -343,8 +519,10 @@ def _device_kernels(fn, calls=10, attempts=4):
     """name -> records of the device kernels that ``calls`` calls of ``fn``
     launch, from a ``torch.profiler`` trace with a warm-up cycle, as
     ``chip_smoke.py``'s timings take it. The trace drops records now and
-    then, once in a while all of them: a trace in which no kernel has
-    records for half the calls is taken again, up to ``attempts`` traces."""
+    then, once in a while all of them, and now and then a record of the
+    warm-up cycle lands in the counted one: a trace in which no kernel has
+    records for half the calls, or one has more records than calls, is
+    taken again, up to ``attempts`` traces."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(attempts):
@@ -360,7 +538,8 @@ def _device_kernels(fn, calls=10, attempts=4):
         kernels = collections.Counter({
             e.key: e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.count})
-        if any(2 * n >= calls for n in kernels.values()):
+        if (any(2 * n >= calls for n in kernels.values())
+                and all(n <= calls for n in kernels.values())):
             break
     return kernels
 
@@ -545,6 +724,11 @@ def test_kernels_launch_on_the_callers_stream(cuda):
     table, ids, mask = (t.to(cuda) for t in _bag(rng, 8, 64, 256,
                                                  torch.float32))
     d = torch.from_numpy(rng.integers(-99, 99, (8, 64))).to(cuda)
+    densify = _on_card(cuda, _lanes_arena(rng, rng.integers(0, 4096, 32), 4,
+                                          ts_at=3), 2048)
+    values = torch.from_numpy(rng.standard_normal((500, 128)).astype(
+        np.float32)).to(cuda)
+    offs = torch.tensor([0, 7, 7, 300, 500], device=cuda)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -552,10 +736,15 @@ def test_kernels_launch_on_the_callers_stream(cuda):
             torch.cuda.default_stream().cuda_stream
         bag = eb.embedding_bag(table, ids, mask, "mean")
         dec = dd.delta_decode(d, d[:, 0])
+        dense, stamps = ops.fused_densify(*densify)
+        padded = jg.jagged_to_padded(values, offs, 256)
     side.synchronize()
     torch.testing.assert_close(bag, eb.embedding_bag_ref(table, ids, mask,
                                                          "mean"), **F32)
     assert torch.equal(dec, dd.delta_decode_ref(d, d[:, 0]))
+    want = ops.fused_densify_ref(*densify)
+    assert torch.equal(dense, want[0]) and torch.equal(stamps, want[1])
+    assert torch.equal(padded, jg.jagged_to_padded_ref(values, offs, 256))
 
 
 @pytest.mark.parametrize("d_dtype,b_dtype", [(torch.int32, torch.int64),
