@@ -30,6 +30,20 @@ of the port over one ``ProductionSim``:
    (device activity only) and every step is split by CUDA events into
    gradients and AdamW, so the step's breakdown comes from the path's own
    batches. Its tensors are then released.
+1b. Stream: the same model trained by ``Trainer.fit`` from a live stream
+   over a second, generation-pinned sim, across the backfill -> live flip,
+   while a producer thread runs the live days and a seeded ``FaultPlan``
+   disconnects the stream, crashes workers and compacts under their scans:
+
+     warehouse replay -> flip (request-id watermark) -> live micro-batches
+     -> DPP workers (host densify, checksum audit) -> DevicePrefetcher
+     -> Trainer.fit, until the stream drains
+
+   It requires each example of the range trained exactly once, the trained
+   windows clean under ``audit_streaming``, every lease released, each
+   fault healed and no ``fused_densify`` launch (the reference densifies
+   streamed batches on the host), and prints steps/s, freshness,
+   starvation and H2D bytes. Its tensors are then released.
 2. Serve: the full-width two-tower retriever
    (``configs/two_tower_retrieval.FULL``, 30.7 GB of float32 parameters, a
    5.1 GB bf16 index over 10,000,384 items) behind ``RetrievalServer``, with
@@ -55,6 +69,7 @@ without a CUDA card or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -984,6 +999,30 @@ def timed_trainer(Trainer):
     return TimedTrainer
 
 
+ROW_KEY = ("user_id", "request_ts", "cand_item_id")   # one example's row
+
+
+def dlrm_loss(cfg, seen, keys=None):
+    """The trainers' loss: DLRM-UIH on the device batch, with the model prep
+    (``dlrm_uih_prep``) run there too. It counts the microbatches and their
+    tensors off the card in ``seen``; with a ``keys`` list it also keeps each
+    microbatch's (user_id, request_ts, cand_item_id) rows on the card, to be
+    read once training is over."""
+    import torch
+
+    from repro_torch.models import recsys as R
+
+    def loss_fn(p, batch):
+        seen["microbatches"] += 1
+        seen["off_card"] += sum(v.device.type != DEVICE
+                                for v in batch.values())
+        if keys is not None:
+            keys.append(torch.stack([batch[k].long() for k in ROW_KEY]))
+        return R.dlrm_uih_loss(p, R.dlrm_uih_prep(batch, cfg), cfg)
+
+    return loss_fn
+
+
 def main_path_phase(sim):
     import numpy as np
     import torch
@@ -1008,13 +1047,7 @@ def main_path_phase(sim):
                 f"{FULL.compute_dtype})")
 
     seen = {"microbatches": 0, "off_card": 0}
-
-    def loss_fn(p, batch):
-        seen["microbatches"] += 1
-        seen["off_card"] += sum(v.device.type != DEVICE
-                                for v in batch.values())
-        return R.dlrm_uih_loss(p, R.dlrm_uih_prep(batch, FULL), FULL)
-
+    loss_fn = dlrm_loss(FULL, seen)
     trainer = timed_trainer(Trainer)(loss_fn, params, TrainerConfig(
         opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=STEPS),
         grad_accum=2, log_every=5))
@@ -1125,6 +1158,285 @@ def step_profile(trainer, trace) -> None:
         per_step = e.self_device_time_total / 1e3 / PROFILE_STEPS
         say("profile", f"{per_step:10.3f} ms/step "
                        f"x{e.count / PROFILE_STEPS:<6g} {e.key[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the streaming leg — FULL DLRM-UIH trained from a live stream
+# across the backfill -> live flip, under injected faults
+# ---------------------------------------------------------------------------
+
+HISTORY_DAYS = 29          # sealed days: the L=2048 windows are near full
+BACKFILL_DAYS = 1          # the last sealed days the trainer replays
+LIVE_DAYS = 2              # produced while the trainer runs
+STREAM_WALL_S = 300.0      # TrainerConfig.max_wall_s: a guard, never reached
+# FaultPlan.seeded(SEED, ...) rates over the first FAULT_TICKS ticks of each
+# scope: at SEED 0, compactions at scan ticks 3 and 11 (each a full-width
+# compaction, about a second of host time), crashes at 5 and 28,
+# disconnects at consume ticks 16, 21, 27 and 30
+FAULT_RATES = {"compaction_during_scan": 0.02, "stream_disconnect": 0.1,
+               "worker_crash": 0.11}
+FAULT_TICKS = 32
+
+
+def build_stream_sim():
+    """``build_sim``'s traffic with generation pinning: ``HISTORY_DAYS``
+    sealed days, the last ``BACKFILL_DAYS`` of them with inference-time
+    references captured (the audit's ground truth); the live days are the
+    caller's to run. Returns the sim and the count of examples before the
+    backfill range."""
+    from repro_torch.core import events as ev
+    from repro_torch.core.simulation import ProductionSim, SimConfig
+
+    sim = ProductionSim(SimConfig(
+        stream=ev.StreamConfig(n_users=32, n_items=100_000,
+                               days=HISTORY_DAYS + LIVE_DAYS + 1,
+                               events_per_user_day_mean=80, seed=SEED),
+        stripe_len=256, lookback_ms=24 * ev.MS_PER_DAY, seed=SEED,
+        pin_generations=True))
+    sealed = HISTORY_DAYS - BACKFILL_DAYS
+    sim.run_days(sealed, capture_reference=False)
+    before = len(sim.examples)
+    for day in range(sealed, HISTORY_DAYS):
+        sim.run_day(day, capture_reference=True)
+    return sim, before
+
+
+def stream_spec():
+    """``examples/train_streaming.py``'s spec at ``L_MAIN`` with
+    ``feed_spec()``'s tenant and features: backfill over the sealed
+    ``BACKFILL_DAYS``, then the live stream; every full window
+    checksum-validated, scans pinned to the logged generation."""
+    import dataclasses
+
+    from repro_torch.data import StreamSource
+
+    first_day = HISTORY_DAYS - BACKFILL_DAYS
+    return dataclasses.replace(
+        feed_spec(),
+        source=StreamSource(backfill=True, micro_batch_examples=8,
+                            micro_batch_delay_s=0.05,
+                            backfill_start_hour=24 * first_day,
+                            backfill_end_hour=24 * HISTORY_DAYS - 1),
+        consistency="audit", generations="pinned", device_materialize=False)
+
+
+class WindowLog:
+    """The windows the feed's workers materialize, kept by request id while
+    ``recording()`` is on (a retried item's windows replace its earlier
+    ones), and handed back to ``audit_streaming`` as its materializer: the
+    audit then holds the very windows the trainer was fed. After the run
+    the logged generations are gone (their leases are released) and a
+    newer one, whose lookback has moved, cannot reproduce them."""
+
+    def __init__(self):
+        self.windows = {}
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.core.materialize import Materializer
+
+        plain = Materializer.materialize_batch
+        windows = self.windows
+
+        def materialize_batch(mat, examples, projection=None):
+            out = plain(mat, examples, projection)
+            windows.update((e.request_id, w) for e, w in zip(examples, out))
+            return out
+
+        Materializer.materialize_batch = materialize_batch
+        try:
+            yield self
+        finally:
+            Materializer.materialize_batch = plain
+
+    def materialize_batch(self, examples, projection=None):
+        return [self.windows[e.request_id] for e in examples]
+
+
+def stream_phase(smi: str) -> None:
+    """Train FULL DLRM-UIH with ``Trainer.fit`` from a ``StreamSource`` feed
+    while a producer thread runs the live days (daily compaction publishes
+    new generations under the readers), through a seeded ``FaultPlan``.
+    Then hold the run to the protocol: every example of the range trained
+    exactly once, the trained windows audit clean, no lease left, each fault
+    healed, and ``fused_densify`` never launched (the stream densifies on
+    the host, as the reference does)."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs.dlrm_uih import FULL
+    from repro_torch.core.consistency import audit_streaming
+    from repro_torch.data import open_feed
+    from repro_torch.kernels.fused import ops
+    from repro_torch.models import recsys as R
+    from repro_torch.testing import FaultPlan, wrap_sim
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    sim, before = build_stream_sim()
+    n_sealed = len(sim.examples)
+    say("stream", f"sim built in {time.perf_counter() - t0:.3f} s: "
+                  f"{n_sealed} sealed examples, {n_sealed - before} in the "
+                  f"backfill range; immutable generation "
+                  f"{sim.immutable.generation} ({smi})")
+    plan = FaultPlan.seeded(
+        SEED, FAULT_RATES, FAULT_TICKS,
+        on_compact=lambda: sim.run_compaction(sim.compaction_watermark,
+                                              evict=False))
+    spec = stream_spec()
+
+    t0 = time.perf_counter()
+    params = R.init_dlrm_uih(FULL, seed=SEED, device=DEVICE)
+    seen = {"microbatches": 0, "off_card": 0}
+    keys = []
+    trainer = Trainer(dlrm_loss(FULL, seen, keys), params, TrainerConfig(
+        opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100),
+        grad_accum=2, log_every=5, max_wall_s=STREAM_WALL_S))
+    torch.cuda.synchronize()
+    say("stream", f"FULL DLRM-UIH params and AdamW state on the card in "
+                  f"{time.perf_counter() - t0:.3f} s ({smi})")
+
+    failed = []
+
+    def producer():
+        try:
+            for day in range(HISTORY_DAYS, HISTORY_DAYS + LIVE_DAYS):
+                sim.run_day(day, capture_reference=True)
+        except BaseException as e:    # re-raised by the phase below
+            failed.append(e)
+        finally:
+            sim.stream.close()
+
+    prod = threading.Thread(target=producer, daemon=True, name="producer")
+    log = WindowLog()
+    first = {}
+    with log.recording():
+        feed = open_feed(spec, wrap_sim(sim, plan), device=DEVICE)
+        transfer = feed.prefetcher._transfer
+
+        def recording_transfer(host_batch):
+            out = transfer(host_batch)
+            if not first:
+                first.update(host=host_batch, dev=out)
+            return out
+
+        feed.prefetcher._transfer = recording_transfer  # before the first get
+        ops.fused_densify.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prod.start()
+        try:
+            trainer.fit(feed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.fused_densify.launches
+            drained = feed.drained
+        finally:
+            feed.close(timeout=60.0)
+            prod.join(timeout=60.0)
+            if failed:   # it closed the stream early: name it first
+                raise RuntimeError("the live producer failed") from failed[0]
+    peak = torch.cuda.max_memory_allocated()
+    require(not prod.is_alive(), "the producer did not finish")
+    require(drained and wall < STREAM_WALL_S,
+            f"fit stopped before the stream drained ({wall:.3f} s)")
+
+    # every batch on the card, and the first one byte-equal to its host batch
+    losses = [h["loss"] for h in trainer.history]
+    require(trainer.step > 0 and all(math.isfinite(x) for x in losses),
+            f"losses {losses}")
+    require(seen["off_card"] == 0 and seen["microbatches"] == 2 * trainer.step,
+            f"batch tensors off the card: {seen}")
+    host, dev = first["host"], first["dev"]
+    require(list(dev) == list(host), "first device batch keys differ")
+    for k, want in host.items():
+        got = dev[k].cpu().numpy()
+        require(got.dtype == want.dtype and got.shape == want.shape
+                and got.tobytes() == want.tobytes(),
+                f"first device batch {k!r} differs from its host batch")
+    require(launches == 0, f"fused_densify launched {launches} times on the "
+                           f"stream path, which densifies on the host")
+
+    # exactly once across the flip: backfill + live == the range, and every
+    # history copy on the stream skipped
+    expected = sim.examples[before:]
+    bf = feed.session.backfill_stats
+    trained = [tuple(r) for r in torch.cat(keys, 1).t().cpu().tolist()]
+    by_key = {(e.user_id, e.request_ts, e.candidate["item_id"]): e
+              for e in expected}
+    require(sorted(trained) == sorted(by_key) and len(by_key) == len(expected),
+            f"trained {len(trained)} rows, not each of the {len(expected)} "
+            f"examples once")
+    require(bf.flipped and bf.warehouse_examples == n_sealed - before
+            and bf.warehouse_examples + bf.stream_examples == len(expected)
+            and bf.duplicates_skipped == n_sealed,
+            f"backfill handoff {bf}")
+
+    # O2O: the windows the workers materialized as the micro-batches
+    # arrived, in trained order, against the inference-time references
+    refs = dict(zip((e.request_id for e in expected), sim.references))
+    require(len(refs) == len(sim.references) == len(expected),
+            "references do not cover the trained range")
+    rows = [by_key[k] for k in trained]
+    t0 = time.perf_counter()
+    report = audit_streaming(
+        (rows[i:i + BATCH] for i in range(0, len(rows), BATCH)), refs, log,
+        sim.schema, spec.tenant)
+    require(report.clean and report.examples == len(expected),
+            f"audit_streaming {report}")
+
+    ls = sim.immutable.lease_stats
+    require(ls.acquired == ls.released and sim.stream.pending_leases() == 0,
+            f"leases {ls}, {sim.stream.pending_leases()} pending")
+    st = feed.stats()
+    fired = [f.kind for f in plan.fired]
+    src = feed.session.source.stats
+    require(all(k in fired for k in FAULT_RATES), f"faults fired {fired}")
+    require(st.workers.worker_restarts >= 1
+            and src.reconnects == fired.count("stream_disconnect"),
+            f"{st.workers.worker_restarts} worker restarts, "
+            f"{src.reconnects} reconnects for {fired}")
+    say("stream", f"checks passed: {len(trained)} rows trained, each example "
+                  f"of the range once; audit_streaming clean over "
+                  f"{report.examples} windows ({report.o2o_mismatches} O2O "
+                  f"mismatches, {report.leaked_events} leaked events) in "
+                  f"{time.perf_counter() - t0:.3f} s; leases {ls.acquired} "
+                  f"acquired == {ls.released} released, 0 pending; faults "
+                  f"fired {dict((k, fired.count(k)) for k in FAULT_RATES)}, "
+                  f"{st.workers.worker_restarts} worker restarts, "
+                  f"{src.reconnects} reconnects; fused_densify launches 0; "
+                  f"all {seen['microbatches']} microbatches on the card, the "
+                  f"first batch byte-equal to its host batch")
+
+    cs, fr = st.client, st.freshness
+    dense = sum(v.nbytes for v in host.values())
+    mats = [w.materializer for w in feed.session.pool._workers]
+    say("stream", f"{trainer.step} AdamW steps (grad_accum 2, batch {BATCH}) "
+                  f"in {wall:.3f} s = {trainer.step / wall:.3f} steps/s; "
+                  f"losses {losses[0]:.5f} -> {losses[-1]:.5f}; peak memory "
+                  f"{peak} B ({smi})")
+    say("stream", f"flip: {bf.warehouse_examples} warehouse examples over "
+                  f"{bf.hours_replayed} hours, then {bf.stream_examples} live; "
+                  f"watermark {bf.watermark}; {bf.duplicates_skipped} stream "
+                  f"copies of history skipped ({smi})")
+    say("stream", f"freshness over {fr.samples} live rows: event->gradient "
+                  f"mean {fr.mean_event_to_gradient_s:.6f} s, max "
+                  f"{fr.event_to_gradient_s_max:.6f} s; peak stream lag "
+                  f"{src.max_lag} examples ({smi})")
+    say("stream", f"starved {cs.starved_time_s:.6f} s (host "
+                  f"{cs.starved_host_s:.6f} s, h2d {cs.starved_h2d_s:.6f} s), "
+                  f"h2d time {cs.h2d_time_s:.6f} s; h2d "
+                  f"{cs.h2d_bytes / max(cs.full_batches, 1):.0f} B a batch "
+                  f"over {cs.full_batches} batches vs {dense} B dense in the "
+                  f"first batch ({smi})")
+    say("stream", f"generations: live {sim.immutable.generation}, "
+                  f"{ls.generations_retained} retained and "
+                  f"{ls.generations_gc} GC'd for leases; "
+                  f"{sum(m.stats.pinned_windows for m in mats)} pinned "
+                  f"windows, {sum(m.stats.stale_reresolved for m in mats)} "
+                  f"stale windows re-resolved (live workers) ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -1620,6 +1932,18 @@ def late_materialize_phase(histories, table) -> dict:
     return launches
 
 
+def release(what: str) -> None:
+    """Hand a finished phase's device memory back before the next one."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    require(left < 2**30, f"{left} B still allocated after the {what}")
+    say("release", f"{what} tensors released: {left} B still allocated")
+    torch.cuda.reset_peak_memory_stats()
+
+
 def build_kernels() -> None:
     """Build every kernel library at once: one nvcc a source, all started
     together (each ``lib()`` waits on its own subprocess)."""
@@ -1681,13 +2005,12 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.3f} s")
     densify["launches"] = main_path_phase(sim)
     # the training path's parameters, optimizer state and feed died with
-    # main_path_phase; hand their memory back before the serving tier's
-    gc.collect()
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated()
-    require(left < 2**30, f"{left} B still allocated after training")
-    say("release", f"training tensors released: {left} B still allocated")
-    torch.cuda.reset_peak_memory_stats()
+    # main_path_phase; hand their memory back before the next phase's
+    release("main path")
+    t0 = time.perf_counter()
+    stream_phase(smi)
+    say("stream", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
+    release("stream phase")
 
     params = two_tower_params()
     table = params["item_table"].detach()

@@ -2,7 +2,8 @@
 
 Port of ``repro.data``: ``spec`` and ``planner`` are copies of the reference
 modules; ``compile.open_feed`` builds the port's device-prefetch stage and
-``DeviceMaterializer`` (CUDA ``fused_densify``) for batch sources.
+``DeviceMaterializer`` (CUDA ``fused_densify``) for batch sources, and the
+``StreamingSession`` (host densify) for ``StreamSource``.
 """
 from repro_torch.core.materialize import TenantShareStats
 from repro_torch.data.compile import compile_worker_plan, open_feed

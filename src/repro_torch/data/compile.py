@@ -1,20 +1,22 @@
 """``open_feed``: compile a declarative ``DatasetSpec`` into the data plane.
 
-Port of ``repro.data.compile``, batch sources only:
+Port of ``repro.data.compile``:
 
-  batch spec --> work items (warehouse buckets | affinity-planned sim epochs)
-             --> DPPWorkerPool(WorkerPlan) --> RebatchingClient
-  --> optional DevicePrefetcher stage (+ DeviceMaterializer running the
-      fused CUDA kernel when ``device_materialize`` is set)
+  batch  spec --> work items (warehouse buckets | affinity-planned sim epochs)
+                 --> DPPWorkerPool(WorkerPlan) --> RebatchingClient
+  stream spec --> StreamingSession (micro-batching, backfill handoff,
+                 generation-lease release, freshness)
+  either --> optional DevicePrefetcher stage (batch feeds add a
+             DeviceMaterializer running the fused CUDA kernel when
+             ``device_materialize`` is set; stream feeds densify on the host)
   --> Feed  (one protocol, consumed identically by the Trainer)
 
-Not yet ported: ``StreamSource`` specs (the streaming slice) and
-``cell``/``mesh`` sharded device batches (the multi-GPU slice); both raise
-``NotImplementedError``.
+Not yet ported: ``cell``/``mesh`` sharded device batches (the multi-GPU
+slice); they raise ``NotImplementedError``.
 
 The ``sim`` argument is the data-platform handle: a ``ProductionSim`` or any
 object exposing ``schema``, ``immutable`` (the store), plus ``warehouse`` /
-``examples`` for the matching source kinds.
+``stream`` / ``examples`` for the matching source kinds.
 """
 from __future__ import annotations
 
@@ -183,29 +185,98 @@ def open_feed(
       materialization off (as in the reference): run model prep on the
       device, inside the loss, to keep the fused kernel on the path;
     * ``controller`` — optional ``ElasticController`` for live pool resizing;
-    * ``resume_from`` — a ``Feed.checkpoint()`` dict: the compiled feed
-      produces exactly the examples the killed run had NOT yet trained.
+    * ``resume_from`` — a ``Feed.checkpoint()`` dict (saved by the
+      ``CheckpointManager`` as the model checkpoint's ``feed_state`` sidecar):
+      the compiled feed produces exactly the examples the killed run had NOT
+      yet trained — batch feeds skip the trained row prefix of the canonical
+      item order and resume the reshuffle emit counter; streaming feeds apply
+      the checkpoint's ``ReplayFilter`` chain to the warehouse re-replay and
+      dedupe live ids below the watermark (exactly-once, §10).
 
-    Returns a started ``Feed``. The caller owns shutdown: ``close()`` (or
-    iterate to exhaustion + ``join()``).
+    A ``StreamSource`` spec always densifies on the host, as the reference
+    does: ``spec.device_materialize`` is ignored there, and the
+    device-prefetch stage only copies the dense batches to ``device``.
+
+    Returns a started ``Feed``; batch and streaming specs yield the same
+    protocol. The caller owns shutdown: ``close()`` (or iterate to
+    exhaustion + ``join()``).
     """
     if cell is not None or mesh is not None:
         raise NotImplementedError(
             "cell/mesh-sharded device batches come with the multi-GPU slice")
-    if isinstance(spec.source, StreamSource):
-        raise NotImplementedError(
-            "StreamSource feeds come with the port's streaming slice")
     plan = compile_worker_plan(spec, sim)
     tel = spec.telemetry
     if tel is not None:
         # attach to the store tier FIRST (generation flips / lease events /
-        # breaker listeners / RTT histogram re-home)
+        # breaker listeners / RTT histogram re-home); reaches the real store
+        # through fault-injection wrappers, whose __setattr__ delegates
         sim.immutable.telemetry = tel
     # prefetch_depth=None means auto (no device stage without a cell); an
     # explicit depth > 0 adds the device-prefetch stage
     depth = spec.prefetch_depth or 0
     base_rows, base_batches = (
         _check_resume(spec, resume_from) if resume_from else (0, 0))
+
+    if isinstance(spec.source, StreamSource):
+        from repro_torch.streaming.backfill import ReplayFilter
+        from repro_torch.streaming.session import StreamingSession
+        from repro_torch.streaming.source import MicroBatchConfig
+
+        filters = []
+        if resume_from:
+            stream_state = resume_from.get("stream") or {}
+            filters = [ReplayFilter.from_state(d)
+                       for d in stream_state.get("filters", [])]
+            if not spec.source.backfill:
+                raise ValueError(
+                    "streaming resume requires StreamSource(backfill=True): "
+                    "the warehouse leg is the durable replay source")
+        session = StreamingSession(
+            sim.stream, plan,
+            full_batch_size=spec.batch_size,
+            micro_batch=MicroBatchConfig(
+                max_examples=spec.source.micro_batch_examples,
+                max_delay_s=spec.source.micro_batch_delay_s),
+            n_workers=spec.n_workers,
+            controller=controller,
+            shuffle_seed=spec.reshuffle_seed,
+            buffer_batches=spec.buffer_batches,
+            backfill_from=sim.warehouse if spec.source.backfill else None,
+            ordered=spec.ordered,
+            max_item_retries=spec.max_item_retries,
+            retry_backoff=_retry_backoff(spec),
+            emit_seq_start=base_batches,
+            resume_filters=filters,
+            backfill_start_hour=spec.source.backfill_start_hour,
+            backfill_end_hour=spec.source.backfill_end_hour,
+        )
+        if spec.ordered and session.coordinator is not None:
+            # BEFORE start, and only when the feed will actually be
+            # checkpointable (the Feed's pops are what bound this FIFO): the
+            # resume cursor reads every emitted batch's row count from it
+            # (prep_fn may reshape batches)
+            session.client.track_emitted_rows = True
+        if tel is not None:
+            session.telemetry = tel    # before start(): spans ride the FIFOs
+        session.start()
+        prefetcher = None
+        inner: Any = session
+        if depth > 0:
+            from repro_torch.dpp.prefetch import DevicePrefetcher
+
+            prefetcher = DevicePrefetcher(session, depth=depth, device=device,
+                                          prep_fn=prep_fn)
+            if tel is not None:
+                prefetcher.telemetry = tel
+            inner = prefetcher
+        resume_meta = None
+        if spec.ordered and session.coordinator is not None:
+            resume_meta = {"fingerprint": resume_fingerprint(spec),
+                           "base_rows": base_rows,
+                           "base_batches": base_batches}
+        return Feed(inner, session=session, prefetcher=prefetcher,
+                    prep_fn=prep_fn, spec=spec, resume_meta=resume_meta,
+                    telemetry=tel, store=sim.immutable)
 
     # device-side late materialization: only when a device-prefetch stage
     # exists to run the fused kernel and no prep_fn expects dense host

@@ -1,8 +1,6 @@
 """The uniform ``Feed``: one handle over the compiled read path.
 
-Port of ``repro.data.feed`` (unchanged apart from import paths and the
-deferred streaming import: ``FreshnessStats`` comes with the streaming
-slice, so ``FeedStats.freshness`` is typed ``Any`` until then).
+Port of ``repro.data.feed`` (unchanged apart from import paths).
 
 Whatever a ``DatasetSpec`` compiles into — warehouse replay through a
 ``DPPWorkerPool`` + ``RebatchingClient``, a live ``StreamingSession``, with or
@@ -37,6 +35,7 @@ from typing import Any, Deque, Dict, Iterator, Optional
 from repro_torch.core.materialize import TenantShareStats
 from repro_torch.dpp.client import ClientStats
 from repro_torch.dpp.worker import WorkerStats
+from repro_torch.streaming.session import FreshnessStats
 
 
 @dataclasses.dataclass
@@ -49,9 +48,7 @@ class FeedStats:
 
     client: ClientStats
     workers: Optional[WorkerStats] = None     # merged across pool workers
-    # streaming feeds only: a streaming.session.FreshnessStats, which lands
-    # with the port's streaming slice (the batch feed never sets it)
-    freshness: Optional[Any] = None
+    freshness: Optional[FreshnessStats] = None  # streaming feeds only
     share: Optional[TenantShareStats] = None    # co-scan feeds only
     peak_workers: int = 0
     stale_dropped: int = 0               # streaming protocol drops

@@ -5,7 +5,7 @@
     spec = DatasetSpec(..., telemetry=tel)
     ...
     tel.write_run_dir("runs/my-run")
-    # python -m repro.obs.report runs/my-run
+    # python -m repro_torch.obs.report runs/my-run
 """
 from repro_torch.obs.events import Event, EventLog
 from repro_torch.obs.registry import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,

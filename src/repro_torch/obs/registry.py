@@ -25,7 +25,7 @@ Design points:
   * **LatencyTracker-compatible histograms.**  ``Histogram`` optionally
     keeps a bounded sample window (``window=N``) and then serves
     ``quantile(q)`` with the exact same semantics as the legacy
-    ``repro.storage.failover.LatencyTracker`` — ``None`` below
+    ``repro_torch.storage.failover.LatencyTracker`` — ``None`` below
     ``min_samples``, index-method quantile over the sorted window — so the
     sharded store's hedge-deadline logic migrates onto a registry metric
     without behavioral drift.  Without a window, ``quantile`` interpolates

@@ -15,7 +15,7 @@ the data plane degrades to a single attribute-is-None check.
     spans.jsonl     completed sampled batch spans (one batch per line)
     summary.json    span lifecycle counts + critical-path attribution
 
-``python -m repro.obs.report <run_dir>`` renders them for humans.
+``python -m repro_torch.obs.report <run_dir>`` renders them for humans.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class Telemetry:
                       gauge_fields: Sequence[str] = (),
                       **labels: Any) -> None:
         """Publish a legacy ``*Stats`` dataclass snapshot into the registry
-        (see :func:`repro.obs.registry.publish_dataclass` for the naming
+        (see :func:`repro_torch.obs.registry.publish_dataclass` for the naming
         rule)."""
         publish_dataclass(self.registry, obj, prefix=prefix,
                           labels=labels, gauge_fields=gauge_fields)

@@ -268,7 +268,7 @@ def build_scan_plan(reqs, route, effective_traits) -> ScanPlan:
 
 
 class ImmutableUIHStore:
-    # Optional per-run telemetry (repro.obs.Telemetry) attached by
+    # Optional per-run telemetry (repro_torch.obs.Telemetry) attached by
     # ``open_feed``; every hook below degrades to one is-None check.
     # Sharded tiers attach to the tier object only — member StoreNodes stay
     # untelemetered so flips/leases are not double-counted.

@@ -28,7 +28,7 @@ class StreamDisconnect(ConnectionError):
     The broker retains unacked messages across a disconnect, so consumers
     recover by reconnecting and re-polling — nothing is lost or duplicated.
     ``StreamingSource`` heals this in place (``SourceStats.reconnects``);
-    ``repro.testing.FaultyStream`` injects it deterministically."""
+    ``repro_torch.testing.FaultyStream`` injects it deterministically."""
 
 
 class TrainingExampleStream:
