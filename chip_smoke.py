@@ -9,8 +9,8 @@ into ``build/`` (one nvcc a source, all at once), holds each kernel against
 its plain PyTorch version on the card (``fused_densify`` first: at the main
 path's B=32 and at B=1024, L=2048, and on edge cases that make its plan
 take each cluster size and each lane path; one device kernel a call, times
-against the bound, the split of a call's host time), and drives four paths
-of the port over one ``ProductionSim``:
+against the bound, the split of a call's host time), and drives the port's
+paths over one ``ProductionSim``:
 
 0. The standalone kernels: the sim's last 32 training examples, materialized
    and featurized as the feed's host plane does (L=2048), through
@@ -30,6 +30,16 @@ of the port over one ``ProductionSim``:
    (device activity only) and every step is split by CUDA events into
    gradients and AdamW, so the step's breakdown comes from the path's own
    batches. Its tensors are then released.
+1a. Tenants: FULL DCN-v2, DIEN and BERT4Rec (``configs/{dcn_v2,dien,
+   bert4rec}.FULL``), each trained ``TENANT_STEPS`` AdamW steps by
+   ``Trainer.fit`` from its own ``open_feed(device_materialize=True)`` at its
+   own length and traits (DIEN and DCN-v2 at L=100 with item ids and
+   categories, BERT4Rec at L=200 with item ids), so ``fused_densify`` runs
+   at their (L, T) behind the real feed; each held to the main path's feed
+   checks, its kernel timed at that shape, a 512-row forward pass served,
+   and one user scored against 1,000,000 candidates, 16 of them held
+   against ``*_forward``; then a fresh FULL DLRM-UIH scores an L=2048 user
+   against 1,000,000 candidates. Its tensors are then released.
 1b. Stream: the same model trained by ``Trainer.fit`` from a live stream
    over a second, generation-pinned sim, across the backfill -> live flip,
    while a producer thread runs the live days and a seeded ``FaultPlan``
@@ -373,15 +383,16 @@ def densify_shapes():
 
 def densify_bound_ms(case, lens, seq_len) -> float:
     """The least time for a call on this case: each kept arena row, the
-    offsets and the bases read once, the int32 block and the int64
-    timestamps written once, at 3.35 TB/s."""
+    offsets and (with a timestamp lane) the bases read once, the int32
+    block and the int64 timestamps written once, at 3.35 TB/s."""
     import numpy as np
 
     arena, offs, bases, ts_col = case
     b, t = len(lens), arena.shape[1]
     kept = int(np.minimum(lens, seq_len).sum())
-    nbytes = (kept * t * 4 + (b + 1) * 4 + b * 8
-              + b * seq_len * t * 4 + b * seq_len * 8)
+    nbytes = kept * t * 4 + (b + 1) * 4 + b * seq_len * t * 4
+    if ts_col >= 0:
+        nbytes += b * 8 + b * seq_len * 8
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -964,6 +975,51 @@ def launches_called_for(payload) -> int:
                   for k in own))
 
 
+def check_device_feed(phase: str, rec, launches: int, cs, seq_len: int
+                      ) -> int:
+    """What a training feed that densifies on the card must show, for the
+    payloads ``rec`` recorded: ``fused_densify`` launched as often as they
+    call for (``launches`` counted over the run) and more than never, the
+    first device batch byte for byte ``densify_host`` of its payload, and
+    fewer H2D bytes than the dense batches hold. Returns the dense bytes."""
+    import numpy as np
+
+    from repro_torch.dpp.device_mat import densify_host
+
+    expected = sum(launches_called_for(p) for p in rec.payloads)
+    groups = launches / max(len(rec.payloads), 1)
+    require(launches > 0 and launches == expected,
+            f"{phase}: fused_densify launches {launches} != the {expected} "
+            f"the {len(rec.payloads)} transferred payloads call for")
+    say(phase, f"fused_densify launched {launches} times for "
+               f"{len(rec.payloads)} transferred batches ({groups:g} groups "
+               f"each), {cs.full_batches} delivered to the trainer")
+    payload, dev = rec.payloads[0], rec.first
+    host = densify_host(payload)
+    require(list(dev) == list(host),
+            f"{phase}: first batch keys differ from densify_host")
+    for k, want in host.items():
+        got = dev[k].cpu().numpy()
+        require(got.dtype == want.dtype and got.shape == want.shape
+                and got.tobytes() == want.tobytes(),
+                f"{phase}: first batch {k!r} differs from densify_host")
+    lens = np.concatenate([np.asarray(p["uih_len"]) for p in rec.payloads])
+    fill = float(np.asarray(payload["uih_len"]).clip(max=seq_len).mean()
+                 / seq_len)
+    fill_all = float(lens.clip(max=seq_len).mean() / seq_len)
+    stamps = (f", uih_timestamp max {int(host['uih_timestamp'].max())}"
+              if "uih_timestamp" in host else "")
+    say(phase, f"first batch == densify_host of its payload, byte for byte "
+               f"({len(host)} keys, fill {fill:.3f}{stamps}); mean fill of "
+               f"all transferred batches {fill_all:.3f}")
+    dense_bytes = sum(v.nbytes for p in rec.payloads
+                      for v in densify_host(p).values())
+    require(0 < cs.h2d_bytes < dense_bytes,
+            f"{phase}: h2d_bytes {cs.h2d_bytes} not below dense "
+            f"{dense_bytes}")
+    return dense_bytes
+
+
 def timed_trainer(Trainer):
     """The port's Trainer with each step marked by CUDA events (start,
     gradients done, AdamW done) and its host end time, and a profiler
@@ -1024,14 +1080,12 @@ def dlrm_loss(cfg, seen, keys=None):
 
 
 def main_path_phase(sim):
-    import numpy as np
     import torch
 
     from repro_torch.configs.dlrm_uih import FULL
     from repro_torch.data import open_feed
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from repro_torch.dpp.device_mat import densify_host
     from repro_torch.kernels.fused import ops
     from repro_torch.models import recsys as R
     from repro_torch.train.optimizer import AdamWConfig
@@ -1079,35 +1133,7 @@ def main_path_phase(sim):
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     require(seen["off_card"] == 0 and seen["microbatches"] == 2 * STEPS,
             f"batch tensors off the card: {seen}")
-    expected = sum(launches_called_for(p) for p in rec.payloads)
-    groups = launches / max(len(rec.payloads), 1)
-    require(launches > 0 and launches == expected,
-            f"fused_densify launches {launches} != the {expected} the "
-            f"{len(rec.payloads)} transferred payloads call for")
-    say("main", f"fused_densify launched {launches} times for "
-                f"{len(rec.payloads)} transferred batches ({groups:g} groups "
-                f"each), {cs.full_batches} delivered to the trainer")
-    payload, dev = rec.payloads[0], rec.first
-    host = densify_host(payload)
-    require(list(dev) == list(host), "first batch keys differ from "
-                                     "densify_host")
-    for k, want in host.items():
-        got = dev[k].cpu().numpy()
-        require(got.dtype == want.dtype and got.shape == want.shape
-                and got.tobytes() == want.tobytes(),
-                f"first batch {k!r} differs from densify_host")
-    lens = np.concatenate([np.asarray(p["uih_len"]) for p in rec.payloads])
-    fill = float(np.asarray(payload["uih_len"]).clip(max=L_MAIN).mean()
-                 / L_MAIN)
-    fill_all = float(lens.clip(max=L_MAIN).mean() / L_MAIN)
-    say("main", f"first batch == densify_host of its payload, byte for byte "
-                f"({len(host)} keys, fill {fill:.3f}, uih_timestamp max "
-                f"{int(host['uih_timestamp'].max())}); mean fill of all "
-                f"transferred batches {fill_all:.3f}")
-    dense_bytes = sum(v.nbytes for p in rec.payloads
-                      for v in densify_host(p).values())
-    require(0 < cs.h2d_bytes < dense_bytes,
-            f"h2d_bytes {cs.h2d_bytes} not below dense {dense_bytes}")
+    dense_bytes = check_device_feed("main", rec, launches, cs, L_MAIN)
     say("main", f"{STEPS} AdamW steps (grad_accum 2, batch {BATCH}) in "
                 f"{wall:.3f} s = {STEPS / wall:.3f} steps/s; losses "
                 f"{losses[0]:.5f} -> {losses[-1]:.5f}, all finite; peak "
@@ -1158,6 +1184,337 @@ def step_profile(trainer, trace) -> None:
         per_step = e.self_device_time_total / 1e3 / PROFILE_STEPS
         say("profile", f"{per_step:10.3f} ms/step "
                        f"x{e.count / PROFILE_STEPS:<6g} {e.key[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the other ranking tenants — FULL DCN-v2, DIEN and BERT4Rec, each
+# trained from its own device-materialized feed at its own length, served,
+# and scoring 1,000,000 candidates; FULL DLRM-UIH scoring too
+# ---------------------------------------------------------------------------
+
+TENANT_STEPS = 10
+SERVE_ROWS = 512           # RECSYS_SHAPES["serve_p99"]: a serving batch
+N_CANDIDATES = 1_000_000   # RECSYS_SHAPES["retrieval_cand"]: one user's
+SCORE_CHECKS = 16          # sampled candidates held against *_forward
+# |score - forward| <= RTOL * |forward| + ATOL * max |forward| over the
+# sampled candidates: 2 and 1 bf16 epsilons (2^-7). The batched tail and
+# the forward pass run the same bf16 ops on GEMMs of other shapes, so they
+# differ by rounding alone.
+SCORE_RTOL = 2 * 2**-7
+SCORE_ATOL = 2**-7
+
+
+def tenant_table():
+    """Each tenant's FULL config, feed length and traits, and model
+    functions. DCN-v2 takes DIEN's feed: its prep reads only the scalars
+    and the history's length."""
+    import torch
+
+    from repro_torch.configs import bert4rec, dcn_v2, dien
+    from repro_torch.models import recsys as R
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)  # BERT4Rec's draws
+    both = ("item_id", "category")
+    return {
+        "dcn-v2": dict(cfg=dcn_v2.FULL, seq_len=dien.FULL.seq_len,
+                       traits=both, init=R.init_dcn_v2, prep=R.dcn_v2_prep,
+                       loss=R.dcn_v2_loss, forward=R.dcn_v2_forward,
+                       score=R.dcn_v2_score_candidates),
+        "dien": dict(cfg=dien.FULL, seq_len=dien.FULL.seq_len, traits=both,
+                     init=R.init_dien, prep=R.dien_prep, loss=R.dien_loss,
+                     forward=R.dien_forward,
+                     score=R.dien_score_candidates),
+        "bert4rec": dict(cfg=bert4rec.FULL, seq_len=bert4rec.FULL.seq_len,
+                         traits=("item_id",), init=R.init_bert4rec,
+                         prep=lambda b, cfg: R.bert4rec_prep(b, cfg, gen),
+                         loss=R.bert4rec_loss, forward=R.bert4rec_forward,
+                         score=R.bert4rec_score_candidates),
+    }
+
+
+def tenant_spec(name: str, seq_len: int, traits):
+    """The tenant's own projection and features over the main path's sim:
+    ``traits`` (item ids, and categories from the side-info group) at
+    ``seq_len``, the same traits as candidate fields, click labels."""
+    from repro_torch.core.projection import TenantProjection
+    from repro_torch.data import DatasetSpec, SimSource
+    from repro_torch.dpp.featurize import FeatureSpec
+
+    groups = {"core": ("item_id",)}
+    if "category" in traits:
+        groups["sideinfo"] = ("category",)
+    return DatasetSpec(
+        tenant=TenantProjection(name, seq_len=seq_len,
+                                feature_groups=tuple(groups),
+                                traits_per_group=groups),
+        source=SimSource(min_rows=(TENANT_STEPS + 4) * BATCH),
+        batch_size=BATCH, base_batch_size=8, prefetch_depth=2, n_workers=4,
+        device_materialize=True,
+        features=FeatureSpec(seq_len=seq_len, uih_traits=traits,
+                             candidate_fields=traits,
+                             label_fields=("click",)))
+
+
+def windows_ms(fn, iters: int, windows: int) -> float:
+    """The median of ``windows`` windows of ``cuda_ms(fn, iters)``."""
+    import statistics
+
+    return statistics.median(cuda_ms(fn, iters, warmup=1)
+                             for _ in range(windows))
+
+
+def payload_densify_args(payload):
+    """``fused_densify``'s card arguments for a payload's shared-plan trait
+    group, packed as ``DeviceMaterializer`` packs it (no timestamp lane)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fused import ops
+
+    lens = np.asarray(payload["uih_len"])
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    arena, _ = ops.pack_arena({
+        k[len("_arena_"):]: np.asarray(v) for k, v in payload.items()
+        if k.startswith("_arena_")
+        and f"_offsets_{k[len('_arena_'):]}" not in payload})
+    case = (arena, offs.astype(np.int32), None, -1)
+    dev = torch.device(DEVICE)
+    args = (torch.from_numpy(arena).to(dev),
+            torch.from_numpy(case[1]).to(dev), int(payload["_seq_len"]),
+            None, -1)
+    return args, densify_bound_ms(case, lens, args[2])
+
+
+def train_tenant(name: str, t: dict, sim):
+    """``TENANT_STEPS`` AdamW steps of the FULL tenant from its own
+    device-materialized feed, held to ``check_device_feed``. Returns the
+    parameters, the recorded payloads and the launch count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import open_feed
+    from repro_torch.kernels.fused import ops
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    cfg = t["cfg"]
+    t0 = time.perf_counter()
+    params = t["init"](cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("tenants", f"{name}: FULL params on the card in "
+                   f"{time.perf_counter() - t0:.3f} s: {n_params} float32 "
+                   f"({cfg.compute_dtype}); feed L={t['seq_len']}, traits "
+                   f"{t['traits']}")
+    seen = {"microbatches": 0, "off_card": 0}
+
+    def loss_fn(p, batch):
+        seen["microbatches"] += 1
+        seen["off_card"] += sum(v.device.type != DEVICE
+                                for v in batch.values())
+        return t["loss"](p, t["prep"](batch, cfg), cfg)
+
+    trainer = Trainer(loss_fn, params, TrainerConfig(
+        opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TENANT_STEPS),
+        grad_accum=2, log_every=5))
+    feed = open_feed(tenant_spec(name, t["seq_len"], t["traits"]), sim,
+                     device=DEVICE)
+    rec = recording_materializer(feed.prefetcher.materialize)
+    feed.prefetcher.materialize = rec          # before the first get()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fused_densify.launches = 0             # count this tenant's path only
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(feed, max_steps=TENANT_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        feed.close(timeout=30.0)
+    launches = ops.fused_densify.launches      # transfers are over
+    peak = torch.cuda.max_memory_allocated()
+    cs = feed.client_stats
+    losses = [h["loss"] for h in trainer.history]
+    require(trainer.step == TENANT_STEPS,
+            f"{name}: trained {trainer.step} of {TENANT_STEPS} steps")
+    require(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
+    require(seen["off_card"] == 0
+            and seen["microbatches"] == 2 * TENANT_STEPS,
+            f"{name}: batch tensors off the card: {seen}")
+    dense_bytes = check_device_feed("tenants", rec, launches, cs,
+                                    t["seq_len"])
+    if "cand_category" in rec.payloads[0]:
+        cats = np.unique(np.concatenate([p["cand_category"]
+                                         for p in rec.payloads]))
+        say("tenants", f"{name}: cand_category values fed: {cats.tolist()} "
+                       f"(0 is the featurizer's default: the sim sets a "
+                       f"candidate's category only with a label_fn)")
+    say("tenants", f"{name}: {TENANT_STEPS} AdamW steps (grad_accum 2, batch "
+                   f"{BATCH}) in {wall:.3f} s = {TENANT_STEPS / wall:.3f} "
+                   f"steps/s; losses {' '.join(f'{x:.5f}' for x in losses)}, "
+                   f"all finite; peak memory {peak} B; h2d {cs.h2d_bytes} B "
+                   f"vs dense {dense_bytes} B; starved "
+                   f"{cs.starved_time_s:.6f} s (host {cs.starved_host_s:.6f} "
+                   f"s, h2d {cs.starved_h2d_s:.6f} s), h2d time "
+                   f"{cs.h2d_time_s:.6f} s")
+    return params, rec.payloads, launches
+
+
+def serve_rows(payloads):
+    """``SERVE_ROWS`` feed rows on the card: the transferred payloads,
+    densified (``densify_host``) and cycled to the serving batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dpp.device_mat import densify_host
+
+    rows = [densify_host(p) for p in payloads]
+    idx = np.arange(SERVE_ROWS) % sum(len(r["uih_len"]) for r in rows)
+    return {k: torch.from_numpy(np.concatenate([r[k] for r in rows])[idx])
+            .to(DEVICE) for k in rows[0]}
+
+
+def serve_tenant(name: str, forward, params, batch, cfg) -> None:
+    """``forward`` on a ``SERVE_ROWS``-row batch under inference mode:
+    finite outputs, and its ms a call (median of 5 windows of 10 calls)."""
+    import torch
+
+    with torch.inference_mode():
+        out = forward(params, batch, cfg)
+        require(out.shape == (SERVE_ROWS,) and bool(torch.isfinite(out).all()),
+                f"{name}: serving forward gave {out.shape}, finite "
+                f"{bool(torch.isfinite(out).all())}")
+        ms = windows_ms(lambda: forward(params, batch, cfg), 10, 5)
+    say("tenants", f"{name}: forward of {SERVE_ROWS} rows {ms:.6f} ms a call "
+                   f"(CUDA events, median of 5 windows of 10), finite")
+
+
+def score_tenant(name: str, t: dict, params, user) -> None:
+    """One user against ``N_CANDIDATES`` seeded candidate ids inside the
+    vocab (DIEN's with seeded categories): the shape, finite scores, ms a
+    call and peak memory; then ``SCORE_CHECKS`` sampled candidates' scores
+    against ``*_forward`` of the user with each of them."""
+    import torch
+
+    cfg, forward = t["cfg"], t["forward"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    vocab = cfg.field_vocab if name == "dcn-v2" else cfg.item_vocab
+    cands = torch.randint(0, vocab, (N_CANDIDATES,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    extra = ()
+    if name == "dien":
+        extra = (torch.randint(0, cfg.cat_vocab, (N_CANDIDATES,),
+                               generator=gen, device=DEVICE,
+                               dtype=torch.int32),)
+
+    def score():
+        return t["score"](params, user, cands, *extra, cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        scores = score()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        want_shape = ((1, N_CANDIDATES) if name == "bert4rec"
+                      else (N_CANDIDATES,))
+        require(tuple(scores.shape) == want_shape
+                and bool(torch.isfinite(scores).all()),
+                f"{name}: scores {tuple(scores.shape)} (want {want_shape}), "
+                f"finite {bool(torch.isfinite(scores).all())}")
+        ms = windows_ms(score, 2, 3)
+        pick = torch.randint(0, N_CANDIDATES, (SCORE_CHECKS,), generator=gen,
+                             device=DEVICE)
+        rows = {k: v.expand(SCORE_CHECKS, *v.shape[1:]).clone()
+                for k, v in user.items()}
+        if name == "dcn-v2":
+            rows["sparse_ids"][:, 0] = cands[pick]
+        else:
+            rows["cand_item_id"] = cands[pick]
+        if name == "dien":
+            rows["cand_category"] = extra[0][pick]
+        got = scores.reshape(-1)[pick].float()
+        want = forward(params, rows, cfg).float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    spread = float(want.max() - want.min())
+    ok = bool(((got - want).abs()
+               <= SCORE_RTOL * want.abs() + SCORE_ATOL * scale).all())
+    require(ok, f"{name}: {SCORE_CHECKS} sampled scores differ from "
+                f"{name} forward: max abs {err} (scale {scale})")
+    say("tenants", f"{name}: 1 user x {N_CANDIDATES} candidates -> "
+                   f"{want_shape}, finite, {ms:.6f} ms a call (median of 3 "
+                   f"windows of 2); peak memory {peak} B ({peak - base} B "
+                   f"over the resident {base} B); {SCORE_CHECKS} sampled "
+                   f"scores == forward of the user with each candidate, max "
+                   f"abs diff {err:.3e} (tolerance {SCORE_RTOL:g}*|f| + "
+                   f"{SCORE_ATOL:g}*{scale:.4f}; the 16 forwards spread "
+                   f"{spread:.4f})")
+
+
+def dlrm_score(jf) -> None:
+    """A freshly initialized FULL DLRM-UIH scoring one L=2048 user of the
+    main path's featurized batch ``jf`` against ``N_CANDIDATES``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.dlrm_uih import FULL
+    from repro_torch.models import recsys as R
+
+    host = jf.to_padded()
+    batch = R.dlrm_uih_prep({k: torch.from_numpy(v).to(DEVICE)
+                             for k, v in host.items()}, FULL)
+    user = {k: v[:1] for k, v in batch.items() if k != "label"}
+    params = R.init_dlrm_uih(FULL, seed=SEED, device=DEVICE)
+    t = {"cfg": FULL, "score": R.dlrm_uih_score_candidates,
+         # remat changes no value; it only saves memory in a backward pass
+         "forward": lambda p, b, cfg: R.dlrm_uih_forward(
+             p, b, dataclasses.replace(cfg, remat=False))}
+    fill = float(user["uih_mask"].float().mean())
+    say("tenants", f"dlrm-uih: FULL params fresh on the card; user history "
+                   f"L={FULL.seq_len}, fill {fill:.3f}; the pooling's "
+                   f"logits are ({N_CANDIDATES}, {FULL.seq_len}) float32, "
+                   f"not chunked")
+    score_tenant("dlrm-uih", t, params, user)
+
+
+def tenants_phase(sim, jf) -> dict:
+    """Train, serve and score each FULL tenant over the main path's sim,
+    then score FULL DLRM-UIH for a user of the featurized batch ``jf``.
+    Returns, per tenant, its ``fused_densify`` launches on its path and the
+    kernel's times at its (L, T)."""
+    import torch
+
+    from repro_torch.kernels.fused import ops
+
+    out = {}
+    for name, t in tenant_table().items():
+        params, payloads, launches = train_tenant(name, t, sim)
+        args, bound = payload_densify_args(payloads[0])
+        kernel_vs_plain(args)
+        shape = f"L={args[2]} T={args[0].shape[1]}"
+        d = out[name] = {
+            "shape": shape, "launches": launches,
+            "ms": windows_ms(lambda: ops.fused_densify(*args), 200, 6),
+            "device_ms": device_ms(lambda: ops.fused_densify(*args),
+                                   name="fused_densify_kernel"),
+            "bound_ms": bound}
+        say("tenants", f"{name}: fused_densify at B={BATCH} {shape} == plain "
+                       f"version; {d['ms']:.6f} ms a call, device only "
+                       f"{d['device_ms']:.6f} ms, bound {bound:.6f} ms "
+                       f"(bytes at 3.35 TB/s)")
+        batch = t["prep"](serve_rows(payloads), t["cfg"])
+        serve_tenant(name, t["forward"], params, batch, t["cfg"])
+        user = {k: v[:1] for k, v in batch.items()
+                if k not in ("label", "mask_pos", "neg_ids")}
+        score_tenant(name, t, params, user)
+        del params, batch, user
+        gc.collect()
+        torch.cuda.empty_cache()
+    dlrm_score(jf)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1443,42 +1800,84 @@ def stream_phase(smi: str) -> None:
 # phase 5: the model on the card agrees with the CPU on a small input
 # ---------------------------------------------------------------------------
 
+def smoke_batch(name: str, cfg, rng, b: int) -> dict:
+    """A model-input batch for SMOKE tenant ``name`` from a numpy ``rng``,
+    with right-aligned histories whose row 0 is all masked."""
+    import numpy as np
+
+    label = (rng.random(b) < 0.3).astype(np.float32)
+    if name == "dcn-v2":
+        return {"sparse_ids": rng.integers(0, cfg.field_vocab,
+                                           (b, cfg.n_sparse)),
+                "dense": rng.random((b, cfg.n_dense)).astype(np.float32),
+                "label": label}
+    s = cfg.seq_len
+    lens = rng.integers(0, s + 1, b)
+    lens[0] = 0
+    mask = np.arange(s)[None, :] >= (s - lens)[:, None]
+    batch = {"uih_item_id": rng.integers(0, cfg.item_vocab, (b, s)),
+             "uih_mask": mask,
+             "cand_item_id": rng.integers(0, cfg.item_vocab, b),
+             "label": label}
+    if name == "dien":
+        batch["uih_category"] = rng.integers(0, cfg.cat_vocab, (b, s))
+        batch["cand_category"] = rng.integers(0, cfg.cat_vocab, b)
+    elif name == "bert4rec":
+        batch["mask_pos"] = (rng.random((b, s)) < 0.3) & mask
+        batch["neg_ids"] = rng.integers(0, cfg.item_vocab, 32)
+    else:
+        batch["uih_action_type"] = rng.integers(0, 16, (b, s))
+        batch["sparse_ids"] = rng.integers(0, cfg.field_vocab,
+                                           (b, cfg.n_sparse))
+        batch["dense"] = rng.random((b, cfg.n_dense)).astype(np.float32)
+    return batch
+
+
 def model_check_phase():
+    """Each SMOKE model's forward (and each new tenant's loss) on the card
+    against the CPU, float32, from the same parameters and batch."""
     import numpy as np
     import torch
 
-    from repro_torch.configs.dlrm_uih import SMOKE
+    from repro_torch.configs import bert4rec, dcn_v2, dien, dlrm_uih
     from repro_torch.models import recsys as R
     from repro_torch.tree import tree_map
 
     # float32 products in full precision on both sides
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(SEED)
-    b, s = 8, SMOKE.seq_len
-    lens = rng.integers(0, s + 1, b)
-    batch = {
-        "uih_item_id": rng.integers(0, SMOKE.item_vocab, (b, s)),
-        "uih_action_type": rng.integers(0, 16, (b, s)),
-        "uih_mask": np.arange(s)[None, :] >= (s - lens)[:, None],
-        "cand_item_id": rng.integers(0, SMOKE.item_vocab, b),
-        "sparse_ids": rng.integers(0, SMOKE.field_vocab, (b, SMOKE.n_sparse)),
-        "dense": rng.random((b, SMOKE.n_dense)).astype(np.float32),
-        "label": (rng.random(b) < 0.3).astype(np.float32),
+    models = {
+        "dlrm-uih": (dlrm_uih.SMOKE, R.init_dlrm_uih, R.dlrm_uih_forward,
+                     None),
+        "dcn-v2": (dcn_v2.SMOKE, R.init_dcn_v2, R.dcn_v2_forward,
+                   R.dcn_v2_loss),
+        "dien": (dien.SMOKE, R.init_dien, R.dien_forward, R.dien_loss),
+        "bert4rec": (bert4rec.SMOKE, R.init_bert4rec, R.bert4rec_forward,
+                     R.bert4rec_loss),
     }
-    cpu = R.init_dlrm_uih(SMOKE, seed=SEED, device="cpu")
-    card = tree_map(lambda t: t.detach().to(DEVICE), cpu)
-    want = R.dlrm_uih_forward(cpu, {k: torch.from_numpy(v)
-                                    for k, v in batch.items()}, SMOKE)
-    got = R.dlrm_uih_forward(card, {k: torch.from_numpy(v).to(DEVICE)
-                                    for k, v in batch.items()}, SMOKE)
-    err = float((got.detach().cpu() - want.detach()).abs().max())
-    require(got.shape == (b,) and bool(torch.isfinite(got).all())
-            and torch.allclose(got.detach().cpu(), want.detach(), rtol=1e-4,
-                               atol=1e-5),
-            f"SMOKE forward on the card differs from the CPU: {err}")
-    say("model", f"SMOKE DLRM-UIH forward on the card == CPU float32 within "
-                 f"rtol 1e-4, atol 1e-5 (max abs diff {err:.3e})")
+    rng = np.random.default_rng(SEED)
+    b = 8
+    for name, (cfg, init, forward, loss) in models.items():
+        batch = smoke_batch(name, cfg, rng, b)
+        cpu = init(cfg, seed=SEED, device="cpu")
+        card = tree_map(lambda t: t.detach().to(DEVICE), cpu)
+        on_cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+        on_card = {k: v.to(DEVICE) for k, v in on_cpu.items()}
+        errs = []
+        for fn, shape in ((forward, (b,)), (loss, ())):
+            if fn is None:
+                continue
+            want = fn(cpu, on_cpu, cfg).detach()
+            got = fn(card, on_card, cfg).detach()
+            err = float((got.cpu() - want).abs().max())
+            require(got.shape == shape and bool(torch.isfinite(got).all())
+                    and torch.allclose(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-5),
+                    f"SMOKE {name} {fn.__name__} on the card differs from "
+                    f"the CPU: {err}")
+            errs.append(f"{fn.__name__} {err:.3e}")
+        say("model", f"SMOKE {name} on the card == CPU float32 within rtol "
+                     f"1e-4, atol 1e-5 (max abs diff: {', '.join(errs)})")
 
 
 # ---------------------------------------------------------------------------
@@ -2007,6 +2406,13 @@ def main() -> int:
     # the training path's parameters, optimizer state and feed died with
     # main_path_phase; hand their memory back before the next phase's
     release("main path")
+    t0 = time.perf_counter()
+    tenants = tenants_phase(sim, jf)
+    say("tenants", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
+    densify["more"]["tenant_launches"] = {n: d["launches"]
+                                          for n, d in tenants.items()}
+    densify["more"]["tenant_shapes"] = tenants
+    release("tenants")
     t0 = time.perf_counter()
     stream_phase(smi)
     say("stream", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")

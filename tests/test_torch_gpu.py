@@ -788,3 +788,57 @@ def test_delta_decode_kernel_scalar_path(cuda, case, dtype):
     if case == "column slice":
         _one_kernel_a_call(lambda: dd.delta_decode(deltas, bases),
                            "delta_decode_kernel")
+
+
+def _tenant_batch(name, cfg, rng, b):
+    """A SMOKE tenant's model inputs from a numpy ``rng``: right-aligned
+    histories, row 0 all masked."""
+    label = (rng.random(b) < 0.3).astype(np.float32)
+    if name == "dcn-v2":
+        return {"sparse_ids": rng.integers(0, cfg.field_vocab,
+                                           (b, cfg.n_sparse)),
+                "dense": rng.random((b, cfg.n_dense)).astype(np.float32),
+                "label": label}
+    s = cfg.seq_len
+    lens = rng.integers(0, s + 1, b)
+    lens[0] = 0
+    mask = np.arange(s)[None, :] >= (s - lens)[:, None]
+    batch = {"uih_item_id": rng.integers(0, cfg.item_vocab, (b, s)),
+             "uih_mask": mask,
+             "cand_item_id": rng.integers(0, cfg.item_vocab, b)}
+    if name == "dien":
+        batch["uih_category"] = rng.integers(0, cfg.cat_vocab, (b, s))
+        batch["cand_category"] = rng.integers(0, cfg.cat_vocab, b)
+        batch["label"] = label
+    else:
+        batch["mask_pos"] = (rng.random((b, s)) < 0.3) & mask
+        batch["neg_ids"] = rng.integers(0, cfg.item_vocab, 32)
+    return batch
+
+
+@pytest.mark.parametrize("name", ["dcn-v2", "dien", "bert4rec"])
+def test_smoke_tenant_on_card_equals_cpu(cuda, name, monkeypatch):
+    """A SMOKE tenant's forward and loss on the card against the CPU, float32
+    with TF32 off, from the same parameters and batch (rtol 1e-4, atol 1e-5,
+    as the CPU parity tests)."""
+    from repro_torch.configs import bert4rec, dcn_v2, dien
+    from repro_torch.models import recsys as R
+    from repro_torch.tree import tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, init, forward, loss = {
+        "dcn-v2": (dcn_v2.SMOKE, R.init_dcn_v2, R.dcn_v2_forward,
+                   R.dcn_v2_loss),
+        "dien": (dien.SMOKE, R.init_dien, R.dien_forward, R.dien_loss),
+        "bert4rec": (bert4rec.SMOKE, R.init_bert4rec, R.bert4rec_forward,
+                     R.bert4rec_loss)}[name]
+    batch = {k: torch.from_numpy(v) for k, v in _tenant_batch(
+        name, cfg, np.random.default_rng(len(name)), 8).items()}
+    cpu = init(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.detach().to(cuda), cpu)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    for fn in (forward, loss):
+        want = fn(cpu, batch, cfg).detach()
+        got = fn(card, on_card, cfg).detach()
+        assert got.is_cuda and torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
