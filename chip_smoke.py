@@ -54,6 +54,20 @@ paths over one ``ProductionSim``:
    fault healed and no ``fused_densify`` launch (the reference densifies
    streamed batches on the host), and prints steps/s, freshness,
    starvation and H2D bytes. Its tensors are then released.
+1c. Cells: the launch layer's 20 recsys (arch x shape) cells at FULL on
+   the one-card mesh (``launch.mesh.make_test_mesh(1)``). Two dry runs
+   start as subprocesses on the host's CPU: ``--mesh one`` reckons each
+   cell's peak from a fake-tensor trace of its step, ``--mesh both``
+   traces the 16x16 and 2x16x16 production meshes. Meanwhile a FULL
+   DLRM-UIH feed opened with the train cell's placements
+   (``open_feed(cell=, mesh=)``) is held against the plain feed: its
+   ``fused_densify`` launches and its batches byte for byte. Every cell
+   whose reckoned peak is under ``CELL_PEAK_LIMIT`` then runs at its own
+   shape (``launch.sampling.sample_args``, 2 warm-up calls, 3 timed train
+   or 10 other calls): finite outputs, a loss that changes and an advanced
+   optimizer step for train cells, N scores for retrieval cells; ms a
+   call, peak, ``model_flops``, MFU and the counted roofline bound. The
+   production dry run must end ok for all 40 cells.
 2. Serve: the full-width two-tower retriever
    (``configs/two_tower_retrieval.FULL``, 30.7 GB of float32 parameters, a
    5.1 GB bf16 index over 10,000,384 items) behind ``RetrievalServer``, with
@@ -84,6 +98,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1797,6 +1812,237 @@ def stream_phase(smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the launch layer's (arch x shape) cells on the card
+# ---------------------------------------------------------------------------
+
+CELL_PEAK_LIMIT = 70e9     # B: a cell whose reckoned peak reaches it stays
+#                            on the dry run (the card holds 80 GB)
+BF16_PEAK_FLOPS = 989.4e12  # H100 SXM5 dense bf16, NVIDIA data sheet
+DRYRUN_TIMEOUT_S = 420.0
+CELL_CALLS = {"train": 3, "serve": 10, "retrieval": 10}   # timed calls
+CELL_WARMUP = 2
+CELL_FEED_BATCHES = 4      # batches compared between the placed and plain feeds
+
+
+def start_dryrun(mesh: str, out: Path):
+    """``python -m repro_torch.launch.dryrun --all --mesh <mesh>`` as a
+    subprocess on the host's CPU (the card hidden from it), writing ``out``
+    and its log beside it. Returns (process, log file, start time)."""
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         "--all", "--mesh", mesh, "--force", "--out", str(out)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def finish_dryrun(run, out: Path, meshes) -> dict:
+    """Wait for a ``start_dryrun`` run (within ``DRYRUN_TIMEOUT_S`` of its
+    start) and require exit 0 and ``ok`` for every recsys cell on
+    ``meshes``. Returns its results by key."""
+    from repro_torch.configs import get_arch, list_archs
+
+    proc, log, t0 = run
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    finally:
+        log.close()
+    tail = out.with_suffix(".log").read_text()[-2000:]
+    require(rc == 0, f"dry run {' '.join(meshes)} exited {rc}:\n{tail}")
+    results = json.loads(out.read_text())
+    keys = [f"{a}|{s}|{m}" for m in meshes for a in list_archs()
+            for s in get_arch(a).shapes]
+    bad = [k for k in keys if not results.get(k, {}).get("ok")]
+    require(not bad, f"dry run cells not ok: {bad}")
+    say("cells", f"dry run --mesh {'+'.join(meshes)}: {len(keys)} cells ok "
+                 f"in {time.perf_counter() - t0:.3f} s (exit 0)")
+    return results
+
+
+def cells_feed_check(sim, mesh) -> int:
+    """DLRM-UIH's device-materialized feed opened with the FULL train
+    cell's placements on the one-card mesh, against the same ordered feed
+    opened without them: ``fused_densify`` launched as its transferred
+    payloads call for, and its first ``CELL_FEED_BATCHES`` batches byte for
+    byte the plain feed's. Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SimSource, open_feed
+    from repro_torch.kernels.fused import ops
+    from repro_torch.launch.steps import build_cell
+
+    spec = dataclasses.replace(feed_spec(), ordered=True,
+                               source=SimSource(min_rows=BATCH))
+    cell = build_cell(get_arch("dlrm-uih"), "train_batch", mesh)
+
+    def drain(**placement):
+        feed = open_feed(spec, sim, device=DEVICE, **placement)
+        rec = recording_materializer(feed.prefetcher.materialize)
+        feed.prefetcher.materialize = rec      # before the first get()
+        ops.fused_densify.launches = 0          # count this feed only
+        try:
+            batches = list(itertools.islice(feed, CELL_FEED_BATCHES))
+            torch.cuda.synchronize()
+        finally:
+            feed.close(timeout=30.0)
+        return batches, rec, ops.fused_densify.launches, feed.client_stats
+
+    plain = drain()[0]
+    placed, rec, launches, cs = drain(cell=cell, mesh=mesh)
+    check_device_feed("cells", rec, launches, cs, L_MAIN)
+    require(len(placed) == len(plain) > 0,
+            f"cells: {len(placed)} placed batches vs {len(plain)} plain")
+    for a, b in zip(plain, placed):
+        require(list(a) == list(b), "cells: placed batch keys differ")
+        for k in a:
+            require(type(b[k]) is torch.Tensor
+                    and b[k].device.type == torch.device(DEVICE).type
+                    and b[k].dtype == a[k].dtype and b[k].shape == a[k].shape
+                    and torch.equal(b[k], a[k]),
+                    f"cells: placed batch {k!r} differs from the plain feed")
+    say("cells", f"open_feed(cell=dlrm-uih|train_batch, mesh=1x1): "
+                 f"{len(placed)} batches byte for byte the plain feed's "
+                 f"(a 1x1 placement is the identity: plain tensors on the "
+                 f"card); fused_densify launched {launches} times")
+    return launches
+
+
+def run_cell(cell, reckoned: dict) -> dict:
+    """``sample_args`` on the card, ``CELL_WARMUP`` calls, then the kind's
+    timed calls under CUDA events; the outputs checked, the peak and the
+    model-FLOPs utilization printed beside the reckoned roofline."""
+    import torch
+
+    from repro_torch.launch.sampling import sample_args
+
+    key = f"{cell.arch_id}|{cell.shape_name}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = sample_args(cell, "recsys", seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    n = CELL_CALLS[cell.kind]
+    losses = []
+
+    def call():
+        nonlocal args
+        out = cell.step_fn(*args)
+        if cell.kind == "train":     # the next step takes the new state
+            args = (out[0], out[1], args[2])
+            losses.append(out[2]["loss"])
+        return out
+
+    for _ in range(CELL_WARMUP):
+        out = call()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        out = call()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / n
+    peak = torch.cuda.max_memory_allocated()
+    if cell.kind == "train":
+        _, opt_state, metrics = out
+        losses = [float(x) for x in losses]
+        require(all(math.isfinite(float(v)) for v in metrics.values())
+                and all(math.isfinite(x) for x in losses),
+                f"{key}: metrics {metrics}, losses {losses}")
+        require(len(set(losses)) > 1, f"{key}: the loss never changed")
+        require(int(opt_state.step) == CELL_WARMUP + n,
+                f"{key}: opt_state.step {int(opt_state.step)}")
+        what = (f"losses {' '.join(f'{x:.5f}' for x in losses)}, "
+                f"opt_state.step {int(opt_state.step)}")
+    else:
+        want = {"serve": (cell.meta.get("batch"),),
+                "retrieval": (cell.meta.get("n_candidates"),)}[cell.kind]
+        shape = tuple(out.shape)
+        require(bool(torch.isfinite(out.float()).all())
+                and (shape[:1] == want or shape[-1:] == want),
+                f"{key}: output {shape}, finite "
+                f"{bool(torch.isfinite(out.float()).all())}")
+        what = f"output {shape} finite"
+    roof = reckoned["roofline"]
+    bound_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+    mfu = cell.model_flops / (ms / 1e3 * BF16_PEAK_FLOPS)
+    say("cells", f"{key}: {ms:.6f} ms a {cell.kind} call (CUDA events, "
+                 f"{n} calls after {CELL_WARMUP}); {what}; peak {peak} B "
+                 f"(reckoned {reckoned['memory']['peak_bytes_per_chip']} B); "
+                 f"model_flops {cell.model_flops:.6e}, mfu {mfu:.6f}; "
+                 f"counted {reckoned['cost']['flops']:.6e} flops, "
+                 f"{reckoned['cost']['bytes accessed']:.6e} B, bound "
+                 f"{bound_ms:.6f} ms ({roof['bottleneck']}); inputs sampled "
+                 f"in {t_sample:.3f} s")
+    del args, out
+    return {"ms": ms, "peak": peak, "mfu": mfu, "bound_ms": bound_ms,
+            "model_flops": cell.model_flops}
+
+
+def cells_phase(sim, smi: str) -> int:
+    """The launch layer on the card: every recsys (arch x shape) cell at
+    FULL on the one-card mesh whose peak (reckoned by a fake-tensor trace
+    of its step, ``dryrun --mesh one``) is under ``CELL_PEAK_LIMIT`` runs at
+    its own shape (``run_cell``); the rest stay on the dry run. A feed
+    opened with a cell's placements is held against the plain feed, and the
+    production dry run (16x16 and 2x16x16 fake meshes, a subprocess started
+    first) must end ok for every cell. Returns the feed's
+    ``fused_densify`` launches."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    one_out = out_dir / "dryrun_one_torch.json"
+    prod_out = out_dir / "dryrun_results_torch.json"
+    one = start_dryrun("one", one_out)
+    prod = start_dryrun("both", prod_out)
+    mesh = make_test_mesh(1, DEVICE)
+    launches = cells_feed_check(sim, mesh)
+    reckoned = finish_dryrun(one, one_out, ["one"])
+    ran, stayed = [], []
+    for arch in list_archs():
+        spec = get_arch(arch)
+        for shape in spec.shapes:
+            r = reckoned[f"{arch}|{shape}|one"]
+            peak = r["memory"]["peak_bytes_per_chip"]
+            if peak >= CELL_PEAK_LIMIT:
+                stayed.append(f"{arch}|{shape}")
+                say("cells", f"{arch}|{shape}: reckoned peak {peak} B >= "
+                             f"{CELL_PEAK_LIMIT:.0f} B: dry run only "
+                             f"(counted {r['cost']['flops']:.6e} flops)")
+                continue
+            run_cell(build_cell(spec, shape, mesh), r)
+            ran.append(f"{arch}|{shape}")
+            release(f"cell {arch}|{shape}")
+    say("cells", f"{len(ran)} cells ran at their own FULL shapes, "
+                 f"{len(stayed)} stayed on the dry run ({smi})")
+    results = finish_dryrun(prod, prod_out, ["pod", "multipod"])
+    for key, e in results.items():
+        say("cells", f"dry run {key}: {e['chips']} chips, logical "
+                     f"{e['memory']['args_logical_bytes_per_chip']} B/chip, "
+                     f"peak {e['memory']['peak_bytes_per_chip']} B/chip, "
+                     f"collectives {e['collectives']['counts']} "
+                     f"({e['collectives']['link_bytes']:.0f} link B/chip), "
+                     f"bottleneck {e['roofline']['bottleneck']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the model on the card agrees with the CPU on a small input
 # ---------------------------------------------------------------------------
 
@@ -2417,6 +2663,10 @@ def main() -> int:
     stream_phase(smi)
     say("stream", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     release("stream phase")
+    t0 = time.perf_counter()
+    densify["more"]["cells_feed_launches"] = cells_phase(sim, smi)
+    say("cells", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
+    release("cells")
 
     params = two_tower_params()
     table = params["item_table"].detach()

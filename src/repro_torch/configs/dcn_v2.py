@@ -2,10 +2,10 @@
 cross layers, deep MLP 1024-1024-512.
 
 Port of ``repro.configs.dcn_v2``: the same ``FULL`` and ``SMOKE`` widths,
-with ``compute_dtype`` as a torch dtype. ``ArchSpec`` comes with the launch
-slice."""
+with ``compute_dtype`` as a torch dtype."""
 import torch
 
+from repro_torch.configs.base import ArchSpec, RECSYS_SHAPES
 from repro_torch.models.recsys import DCNv2Config
 
 FULL = DCNv2Config(
@@ -18,3 +18,7 @@ SMOKE = DCNv2Config(
     n_cross_layers=2, mlp=(32, 16), field_vocab=100,
     compute_dtype=torch.float32,
 )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec("dcn-v2", "recsys", FULL, SMOKE, RECSYS_SHAPES)

@@ -2,10 +2,10 @@
 evolution, MLP 200-80.
 
 Port of ``repro.configs.dien``: the same ``FULL`` and ``SMOKE`` widths, with
-``compute_dtype`` as a torch dtype. ``ArchSpec`` comes with the launch
-slice."""
+``compute_dtype`` as a torch dtype."""
 import torch
 
+from repro_torch.configs.base import ArchSpec, RECSYS_SHAPES
 from repro_torch.models.recsys import DIENConfig
 
 FULL = DIENConfig(
@@ -17,3 +17,7 @@ SMOKE = DIENConfig(
     name="dien-smoke", embed_dim=8, seq_len=12, gru_dim=16, mlp=(16, 8),
     item_vocab=500, cat_vocab=50, compute_dtype=torch.float32,
 )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec("dien", "recsys", FULL, SMOKE, RECSYS_SHAPES)

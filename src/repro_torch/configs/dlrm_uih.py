@@ -2,10 +2,10 @@
 transformer encoder over an ultra-long UIH sequence (the Fig.4 scaling knob).
 
 Port of ``repro.configs.dlrm_uih``: the same ``FULL`` and ``SMOKE`` widths,
-with ``compute_dtype`` as a torch dtype. ``ArchSpec``/``RECSYS_SHAPES`` come
-with the launch slice."""
+with ``compute_dtype`` as a torch dtype."""
 import torch
 
+from repro_torch.configs.base import ArchSpec, RECSYS_SHAPES
 from repro_torch.models.recsys import DLRMUIHConfig
 
 FULL = DLRMUIHConfig(
@@ -19,3 +19,10 @@ SMOKE = DLRMUIHConfig(
     n_dense=4, n_sparse=2, embed_dim=8, item_vocab=1_000, field_vocab=100,
     compute_dtype=torch.float32,
 )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        "dlrm-uih", "recsys", FULL, SMOKE, RECSYS_SHAPES,
+        notes="paper's own architecture (not from the assigned pool)",
+    )

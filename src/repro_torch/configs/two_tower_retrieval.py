@@ -2,10 +2,10 @@
 1024-512-256, dot interaction, in-batch sampled softmax w/ logQ.
 
 Port of ``repro.configs.two_tower_retrieval``: the same ``FULL`` and
-``SMOKE`` widths, with ``compute_dtype`` as a torch dtype. ``ArchSpec`` comes
-with the launch slice."""
+``SMOKE`` widths, with ``compute_dtype`` as a torch dtype."""
 import torch
 
+from repro_torch.configs.base import ArchSpec, RECSYS_SHAPES
 from repro_torch.models.recsys import TwoTowerConfig
 
 FULL = TwoTowerConfig(
@@ -18,3 +18,8 @@ SMOKE = TwoTowerConfig(
     item_vocab=1_000, user_vocab=500, uih_len=12,
     compute_dtype=torch.float32,
 )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec("two-tower-retrieval", "recsys", FULL, SMOKE,
+                    RECSYS_SHAPES)

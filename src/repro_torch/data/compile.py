@@ -8,11 +8,10 @@ Port of ``repro.data.compile``:
                  generation-lease release, freshness)
   either --> optional DevicePrefetcher stage (batch feeds add a
              DeviceMaterializer running the fused CUDA kernel when
-             ``device_materialize`` is set; stream feeds densify on the host)
+             ``device_materialize`` is set; stream feeds densify on the host;
+             with a ``cell`` and ``mesh`` each batch is placed on the mesh
+             with the cell's batch placements)
   --> Feed  (one protocol, consumed identically by the Trainer)
-
-Not yet ported: ``cell``/``mesh`` sharded device batches (the multi-GPU
-slice); they raise ``NotImplementedError``.
 
 The ``sim`` argument is the data-platform handle: a ``ProductionSim`` or any
 object exposing ``schema``, ``immutable`` (the store), plus ``warehouse`` /
@@ -20,9 +19,10 @@ object exposing ``schema``, ``immutable`` (the store), plus ``warehouse`` /
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.backoff import Backoff
 from repro_torch.core.materialize import Materializer
@@ -163,6 +163,54 @@ def _check_resume(spec: DatasetSpec, resume_from: dict) -> tuple:
             int(resume_from.get("trained_batches", 0)))
 
 
+class BatchPlacement:
+    """Places a global device batch on a mesh, leaf by leaf, with a cell's
+    batch placements, as the reference's single controller lays a global
+    batch out: every rank holds the global batch (each opens the same
+    deterministic feed) and keeps its block of each leaf, with no
+    communication. A leaf the cell does not name (a feed batch carries more
+    keys than the model's inputs) takes ``default``: its leading dim over
+    the data axes, as the cell's own batch leaves. On a mesh of one device
+    the placement is the identity and the batch stays plain tensors;
+    otherwise each leaf becomes a ``DTensor`` (``DTensor.from_local``)."""
+
+    def __init__(self, specs: Dict[str, Any], default: Any, mesh: Any):
+        self.specs = specs
+        self.default = default
+        self.mesh = mesh
+
+    def spec(self, key: str):
+        return self.specs.get(key, self.default)
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        if self.mesh.size() == 1:
+            return batch
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.launch.shardings import local_block, named
+
+        out = {}
+        for k, v in batch.items():
+            spec = self.spec(k)
+            out[k] = DTensor.from_local(
+                local_block(v, spec, self.mesh).contiguous(), self.mesh,
+                named(self.mesh, spec), run_check=False)
+        return out
+
+
+def cell_input_sharding(cell: Any, mesh: Any) -> Optional[BatchPlacement]:
+    """The ``BatchPlacement`` of a ``launch.steps.Cell``'s batch argument on
+    ``mesh`` (the device feed's target); ``None`` without both."""
+    if cell is None or mesh is None:
+        return None
+    from repro_torch.launch.shardings import P
+
+    batch_sh = next(sh for sh in cell.in_shardings[1:]
+                    if isinstance(sh, dict))
+    lead = next(iter(batch_sh.values()))[0]   # the batch leaves' dim-0 axes
+    return BatchPlacement(dict(batch_sh), P(lead), mesh)
+
+
 def open_feed(
     spec: DatasetSpec,
     sim: Any,
@@ -178,7 +226,9 @@ def open_feed(
 
     * ``device`` — where the device-prefetch stage puts batches (``"cuda"``
       unless the caller asks for ``"cpu"``);
-    * ``cell``/``mesh`` — sharded device batches; not ported yet (raises);
+    * ``cell``/``mesh`` (optional) — place each device batch on ``mesh``
+      with a ``launch.steps.Cell``'s batch placements
+      (``cell_input_sharding``), after the device densify;
     * ``prep_fn`` — model-specific host transform; runs inside the prefetch
       thread when there is one, else on the consumer's ``get``. A
       ``prep_fn`` expects dense host batches, so it turns device
@@ -201,9 +251,6 @@ def open_feed(
     protocol. The caller owns shutdown: ``close()`` (or iterate to
     exhaustion + ``join()``).
     """
-    if cell is not None or mesh is not None:
-        raise NotImplementedError(
-            "cell/mesh-sharded device batches come with the multi-GPU slice")
     plan = compile_worker_plan(spec, sim)
     tel = spec.telemetry
     if tel is not None:
@@ -211,9 +258,11 @@ def open_feed(
         # breaker listeners / RTT histogram re-home); reaches the real store
         # through fault-injection wrappers, whose __setattr__ delegates
         sim.immutable.telemetry = tel
-    # prefetch_depth=None means auto (no device stage without a cell); an
-    # explicit depth > 0 adds the device-prefetch stage
-    depth = spec.prefetch_depth or 0
+    # prefetch_depth=None means auto (device stage iff a cell is targeted);
+    # an explicit 0 FORCES the host feed even with a cell
+    depth = (spec.prefetch_depth if spec.prefetch_depth is not None
+             else (2 if cell is not None else 0))
+    place = cell_input_sharding(cell, mesh)
     base_rows, base_batches = (
         _check_resume(spec, resume_from) if resume_from else (0, 0))
 
@@ -265,7 +314,7 @@ def open_feed(
             from repro_torch.dpp.prefetch import DevicePrefetcher
 
             prefetcher = DevicePrefetcher(session, depth=depth, device=device,
-                                          prep_fn=prep_fn)
+                                          prep_fn=prep_fn, place=place)
             if tel is not None:
                 prefetcher.telemetry = tel
             inner = prefetcher
@@ -311,7 +360,7 @@ def open_feed(
             materialize = DeviceMaterializer(device=device)
         prefetcher = DevicePrefetcher(client, depth=depth, device=device,
                                       prep_fn=prep_fn,
-                                      materialize=materialize)
+                                      materialize=materialize, place=place)
         if tel is not None:
             prefetcher.telemetry = tel
         inner = prefetcher

@@ -89,6 +89,8 @@ class DevicePrefetcher:
 
     ``source`` is either a ``RebatchingClient``-like object (``get_full_batch``
     returning ``None`` at end of stream) or any iterable of host batches.
+    ``place`` (optional) maps each device batch to its layout on a mesh
+    (``data.compile.BatchPlacement``), after the transfer and densify.
     """
 
     def __init__(
@@ -100,6 +102,7 @@ class DevicePrefetcher:
         stats: Optional[ClientStats] = None,
         recycle_host: bool = False,
         materialize: Any = None,
+        place: Optional[Callable[[Dict[str, Any]], Any]] = None,
     ):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
@@ -115,6 +118,7 @@ class DevicePrefetcher:
         # with the kernels/fused CUDA kernel — dense batches (or a None
         # materializer) take the plain path below
         self.materialize = materialize
+        self.place = place
         self.stats = stats if stats is not None else (
             getattr(source, "stats", None) or ClientStats())
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -167,7 +171,7 @@ class DevicePrefetcher:
             # never crosses the link
             dev = self.materialize(host_batch)
             self.stats.h2d_bytes += self.materialize.last_h2d_bytes
-            return dev
+            return dev if self.place is None else self.place(dev)
         prepped = self.prep_fn(host_batch) if self.prep_fn else host_batch
         if not isinstance(prepped, dict):
             raise TypeError("DevicePrefetcher transfers dict batches, got "
@@ -176,7 +180,7 @@ class DevicePrefetcher:
                for k, v in prepped.items()}
         self.stats.h2d_bytes += sum(
             getattr(v, "nbytes", 0) for v in prepped.values())
-        return dev
+        return dev if self.place is None else self.place(dev)
 
     def _transfer_ready(self, host_batch: HostBatch) -> _Ready:
         """Transfer on the side stream and wait for it (CUDA), or directly."""

@@ -1,7 +1,7 @@
 """RecSys tenants in PyTorch: two-tower retrieval, DCN-v2, DIEN, BERT4Rec
 and DLRM-UIH, and their candidate-scoring paths.
 
-Port of ``repro.models.recsys`` for one device. Two-tower retrieval (YouTube
+Port of ``repro.models.recsys``. Two-tower retrieval (YouTube
 RecSys'19) encodes a user from their id and the mean bag of their history,
 and an item from its id, into L2-normalized vectors scored by a dot product.
 DCN-v2 crosses 26 sparse field embeddings and 13 dense features
@@ -23,6 +23,20 @@ loops over the sequence, not ``torch.nn.GRU``: the reference's cell has its
 bias on the input side only, an attention-gated update and a masked carry.
 The ``*_score_candidates`` paths score one user against N candidates: the
 shared encoder runs once and the per-candidate tail runs batched over N.
+
+With ``cfg.mesh`` set (a ``DeviceMesh`` with a ``model`` axis), every
+function is the rank-local program of a mesh of ranks: the big tables hold
+this ``model`` rank's rows and the lookups take the row-sharded branch
+(``models/embedding.py``); the batch arrives sharded over ``cfg.data_axes``
+and ``_shard_batch_all`` narrows it to this rank's block of rows over
+``data_axes + ("model",)`` for the encoder section; a forward pass gathers
+its output back over ``model``; a loss is this rank's part of the global
+loss (divided by the global row count), so gradients are partial sums that
+``launch.steps`` reduces over the axes each parameter is replicated on. The
+retrieval cells shard their candidates over every axis: their
+``data_axes`` hold ``model`` too, the narrowing and the gather-back are
+identities and the lookups gather ids over ``model`` and reduce-scatter the
+rows. With ``mesh=None`` nothing of this runs.
 """
 from __future__ import annotations
 
@@ -31,20 +45,98 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import axes_group, axes_rank, axes_size
 from repro_torch.models import layers as L
 from repro_torch.models.embedding import (
+    bag_rowsharded,
     embedding_bag,
     init_table,
     lookup,
+    lookup_rowsharded,
     mlp_apply,
     mlp_init,
+    seq_rowsharded,
 )
 from repro_torch.tree import to_parameter_dict, tree_map
 
 Params = Dict[str, Any]
+
+
+def _lookup(table, ids, cfg, dt):
+    """Candidate/field lookup; the row-sharded branch on a mesh."""
+    if cfg.mesh is not None:
+        return lookup_rowsharded(table, ids, cfg.mesh, cfg.data_axes, dtype=dt)
+    return lookup(table, ids, dt)
+
+
+def _seq_lookup(table, ids, cfg, dt):
+    """Per-position sequence lookup (B, S) -> (B, S, D)."""
+    if cfg.mesh is not None:
+        return seq_rowsharded(table, ids, cfg.mesh, cfg.data_axes, dtype=dt)
+    return lookup(table, ids, dt)
+
+
+def _bag(table, ids, mask, combiner, cfg, dt):
+    if cfg.mesh is not None:
+        return bag_rowsharded(table, ids, mask, combiner, cfg.mesh,
+                              cfg.data_axes, dtype=dt)
+    return embedding_bag(table, ids, mask, combiner, dt)
+
+
+def _sharded_over_model(cfg) -> bool:
+    """The batch already comes sharded over ``model`` (retrieval cells)."""
+    return "model" in tuple(cfg.data_axes)
+
+
+def _section_axes(cfg):
+    axes = tuple(cfg.data_axes)
+    return axes if "model" in axes else axes + ("model",)
+
+
+def _shard_batch_all(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Recsys encoders have no model-parallel dims, so the ``model`` axis
+    would otherwise idle while every ``model`` rank computes the same rows:
+    keep this rank's block of a batch-leading tensor (sharded over the data
+    axes, replicated over ``model``) for the encoder section. No
+    communication; the other blocks' gradient is zero here and lives on the
+    ranks that kept them."""
+    if cfg.mesh is None or _sharded_over_model(cfg):
+        return x
+    n = axes_size(cfg.mesh, ("model",))
+    if x.shape[0] % n:
+        raise ValueError(f"batch of {x.shape[0]} rows does not split over "
+                         f"{n} model ranks")
+    rows = x.shape[0] // n
+    return x.narrow(0, cfg.mesh.get_local_rank("model") * rows, rows)
+
+
+def _gather_batch(x: torch.Tensor, cfg) -> torch.Tensor:
+    """The inverse of ``_shard_batch_all`` for an output: all-gather the
+    row blocks over ``model``."""
+    if cfg.mesh is None or _sharded_over_model(cfg):
+        return x
+    return funcol.all_gather_tensor(x.contiguous(), 0,
+                                    cfg.mesh.get_group("model"))
+
+
+def _global_mean(local_mean: torch.Tensor, cfg) -> torch.Tensor:
+    """A mean over this rank's rows as its part of the mean over the global
+    batch (equal blocks on every rank of the section)."""
+    if cfg.mesh is None:
+        return local_mean
+    return local_mean / axes_size(cfg.mesh, _section_axes(cfg))
+
+
+def _section_sum(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``x`` summed over the encoder section's ranks (no gradient)."""
+    if cfg.mesh is None:
+        return x
+    return funcol.all_reduce(x.detach(), "sum",
+                             axes_group(cfg.mesh, _section_axes(cfg)))
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -79,6 +171,8 @@ class TwoTowerConfig:
     uih_len: int = 100
     temperature: float = 0.05
     compute_dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None              # row-sharded lookups when set
+    data_axes: Tuple[str, ...] = ("data",)
 
     def param_count(self) -> int:
         d = self.embed_dim
@@ -112,35 +206,60 @@ def _l2_normalize(z: torch.Tensor) -> torch.Tensor:
     return z / (norm + 1e-6).to(z.dtype)
 
 
+def _two_tower_user(params: Params, user_id: torch.Tensor,
+                    uih_ids: torch.Tensor, uih_mask: torch.Tensor,
+                    cfg: TwoTowerConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    u = _lookup(params["user_table"], user_id, cfg, dt)
+    hist = _bag(params["item_table"], uih_ids, uih_mask, "mean", cfg, dt)
+    z = _shard_batch_all(torch.cat([u, hist], dim=-1), cfg)
+    z = mlp_apply(params["user_mlp"], z, len(cfg.tower_mlp))
+    return _l2_normalize(z)
+
+
+def _two_tower_item(params: Params, item_id: torch.Tensor,
+                    cfg: TwoTowerConfig) -> torch.Tensor:
+    z = _shard_batch_all(
+        _lookup(params["item_table"], item_id, cfg, cfg.compute_dtype), cfg)
+    return _l2_normalize(mlp_apply(params["item_mlp"], z, len(cfg.tower_mlp)))
+
+
 def two_tower_user(params: Params, user_id: torch.Tensor,
                    uih_ids: torch.Tensor, uih_mask: torch.Tensor,
                    cfg: TwoTowerConfig) -> torch.Tensor:
-    dt = cfg.compute_dtype
-    u = lookup(params["user_table"], user_id, dt)
-    hist = embedding_bag(params["item_table"], uih_ids, uih_mask, "mean", dt)
-    z = mlp_apply(params["user_mlp"], torch.cat([u, hist], dim=-1),
-                  len(cfg.tower_mlp))
-    return _l2_normalize(z)
+    return _gather_batch(_two_tower_user(params, user_id, uih_ids, uih_mask,
+                                         cfg), cfg)
 
 
 def two_tower_item(params: Params, item_id: torch.Tensor,
                    cfg: TwoTowerConfig) -> torch.Tensor:
-    z = lookup(params["item_table"], item_id, cfg.compute_dtype)
-    return _l2_normalize(mlp_apply(params["item_mlp"], z, len(cfg.tower_mlp)))
+    return _gather_batch(_two_tower_item(params, item_id, cfg), cfg)
 
 
 def two_tower_loss(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: TwoTowerConfig,
                    log_q: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """In-batch sampled softmax with logQ correction."""
-    u = two_tower_user(params, batch["user_id"], batch["uih_item_id"],
-                       batch["uih_mask"], cfg)
-    v = two_tower_item(params, batch["cand_item_id"], cfg)
+    """In-batch sampled softmax with logQ correction. On a mesh every rank
+    scores its rows against the candidates of the whole global batch
+    (all-gathered over the encoder section)."""
+    u = _two_tower_user(params, batch["user_id"], batch["uih_item_id"],
+                        batch["uih_mask"], cfg)
+    v = _two_tower_item(params, batch["cand_item_id"], cfg)
+    first = 0                                 # this rank's first global row
+    if cfg.mesh is not None:
+        axes = _section_axes(cfg)
+        group = axes_group(cfg.mesh, axes)
+        first = axes_rank(cfg.mesh, axes) * u.shape[0]
+        v = funcol.all_gather_tensor(v.contiguous(), 0, group)
+        if log_q is not None:
+            log_q = funcol.all_gather_tensor(
+                _shard_batch_all(log_q, cfg).contiguous(), 0, group)
     logits = (u @ v.T).float() / cfg.temperature                # (B, B)
     if log_q is not None:  # correct for in-batch sampling bias
         logits = logits - log_q[None, :]
     logz = torch.logsumexp(logits, dim=-1)
-    return torch.mean(logz - torch.diagonal(logits))
+    gold = torch.diagonal(logits, offset=first)
+    return _global_mean(torch.mean(logz - gold), cfg)
 
 
 def two_tower_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
@@ -167,6 +286,8 @@ class DCNv2Config:
     mlp: Tuple[int, ...] = (1024, 1024, 512)
     field_vocab: int = 1_000_000
     compute_dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None              # row-sharded lookups when set
+    data_axes: Tuple[str, ...] = ("data",)
 
     @property
     def d_interact(self) -> int:
@@ -192,14 +313,15 @@ def init_dcn_v2(cfg: DCNv2Config, seed: int = 0, device="cuda"
     return to_parameter_dict(tree)
 
 
-def dcn_v2_forward(params: Params, batch: Dict[str, torch.Tensor],
+def _dcn_v2_logits(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: DCNv2Config) -> torch.Tensor:
     dt = cfg.compute_dtype
     ids = batch["sparse_ids"]                                  # (B, F)
     offsets = torch.arange(cfg.n_sparse, device=ids.device) * cfg.field_vocab
-    emb = lookup(params["embed"], ids + offsets[None, :], dt)  # (B, F, D)
-    x0 = torch.cat([emb.reshape(ids.shape[0], -1), batch["dense"].to(dt)],
-                   dim=-1)
+    emb = _seq_lookup(params["embed"], ids + offsets[None, :], cfg,
+                      dt)                                      # (B, F, D)
+    x0 = _shard_batch_all(torch.cat(
+        [emb.reshape(ids.shape[0], -1), batch["dense"].to(dt)], dim=-1), cfg)
     x = x0
     for i in range(cfg.n_cross_layers):   # x_{l+1} = x0*(W x_l + b) + x_l
         xw = x @ params[f"cross_w{i}"].to(dt) + params[f"cross_b{i}"].to(dt)
@@ -209,9 +331,16 @@ def dcn_v2_forward(params: Params, batch: Dict[str, torch.Tensor],
     return mlp_apply(params["head"], z, 1)[:, 0]
 
 
+def dcn_v2_forward(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: DCNv2Config) -> torch.Tensor:
+    return _gather_batch(_dcn_v2_logits(params, batch, cfg), cfg)
+
+
 def dcn_v2_loss(params: Params, batch: Dict[str, torch.Tensor],
                 cfg: DCNv2Config) -> torch.Tensor:
-    return bce_with_logits(dcn_v2_forward(params, batch, cfg), batch["label"])
+    return _global_mean(bce_with_logits(
+        _dcn_v2_logits(params, batch, cfg),
+        _shard_batch_all(batch["label"], cfg)), cfg)
 
 
 # ===========================================================================
@@ -228,6 +357,8 @@ class DIENConfig:
     item_vocab: int = 1_000_000
     cat_vocab: int = 10_000
     compute_dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None              # row-sharded lookups when set
+    data_axes: Tuple[str, ...] = ("data",)
 
     @property
     def d_in(self) -> int:
@@ -281,19 +412,22 @@ def init_dien(cfg: DIENConfig, seed: int = 0, device="cuda"
 def _dien_history(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: DIENConfig):
     """The history's embeddings (B, S, 2D), its validity (B, S) and the
-    mask in the compute dtype."""
+    mask in the compute dtype, narrowed to the encoder section's rows."""
     dt = cfg.compute_dtype
-    mask = batch["uih_mask"].to(dt)
-    e = torch.cat([lookup(params["item_table"], batch["uih_item_id"], dt),
-                   lookup(params["cat_table"], batch["uih_category"], dt)],
-                  dim=-1)
-    return e, mask > 0, mask
+    mask = _shard_batch_all(batch["uih_mask"], cfg).to(dt)
+    e = torch.cat(
+        [_seq_lookup(params["item_table"], batch["uih_item_id"], cfg, dt),
+         _seq_lookup(params["cat_table"], batch["uih_category"], cfg, dt)],
+        dim=-1)
+    return _shard_batch_all(e, cfg), mask > 0, mask
 
 
 def _dien_target(params: Params, item_ids: torch.Tensor,
-                 cat_ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    return torch.cat([lookup(params["item_table"], item_ids, dt),
-                      lookup(params["cat_table"], cat_ids, dt)], dim=-1)
+                 cat_ids: torch.Tensor, cfg: DIENConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    return _shard_batch_all(torch.cat(
+        [_lookup(params["item_table"], item_ids, cfg, dt),
+         _lookup(params["cat_table"], cat_ids, cfg, dt)], dim=-1), cfg)
 
 
 def _interest_states(p: Params, e: torch.Tensor, valid: torch.Tensor
@@ -333,12 +467,12 @@ def _dien_head(params: Params, final: torch.Tensor, tgt: torch.Tensor,
     return mlp_apply(params["mlp"], z, len(cfg.mlp) + 1)[:, 0]
 
 
-def dien_forward(params: Params, batch: Dict[str, torch.Tensor],
+def _dien_logits(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: DIENConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     e, valid, mask = _dien_history(params, batch, cfg)         # (B, S, 2D)
     tgt = _dien_target(params, batch["cand_item_id"],
-                       batch["cand_category"], dt)             # (B, 2D)
+                       batch["cand_category"], cfg)            # (B, 2D)
     interests = _interest_states(params["gru1"], e, valid)     # (B, S, H)
     # attention of target vs interest states: einsum("bsh,hd,bd->bs") with
     # float32 accumulation (bf16 operands are exact in float32)
@@ -350,9 +484,16 @@ def dien_forward(params: Params, batch: Dict[str, torch.Tensor],
     return _dien_head(params, final, tgt, hist_sum, cfg)
 
 
+def dien_forward(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: DIENConfig) -> torch.Tensor:
+    return _gather_batch(_dien_logits(params, batch, cfg), cfg)
+
+
 def dien_loss(params: Params, batch: Dict[str, torch.Tensor],
               cfg: DIENConfig) -> torch.Tensor:
-    return bce_with_logits(dien_forward(params, batch, cfg), batch["label"])
+    return _global_mean(bce_with_logits(
+        _dien_logits(params, batch, cfg),
+        _shard_batch_all(batch["label"], cfg)), cfg)
 
 
 # ===========================================================================
@@ -369,6 +510,8 @@ class BERT4RecConfig:
     item_vocab: int = 1_000_000
     mask_token: int = 0
     compute_dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None              # row-sharded lookups when set
+    data_axes: Tuple[str, ...] = ("data",)
     loss_chunk: int = 0   # 0 = no chunking
 
 
@@ -414,12 +557,16 @@ def init_bert4rec(cfg: BERT4RecConfig, seed: int = 0, device="cuda"
 
 def bert4rec_encode(params: Params, ids: torch.Tensor, mask: torch.Tensor,
                     cfg: BERT4RecConfig) -> torch.Tensor:
-    """Bidirectional encoder: (B, S) ids -> (B, S, D). The positional table
-    is added to every position, so S must equal ``cfg.seq_len``."""
+    """Bidirectional encoder: (B, S) ids -> (B, S, D), narrowed to the
+    encoder section's rows. The positional table is added to every
+    position, so S must equal ``cfg.seq_len``."""
     dt = cfg.compute_dtype
-    b, s = ids.shape
     attn_cfg = _bert4rec_attn_config(cfg)
-    h = lookup(params["item_table"], ids, dt) + params["pos_table"].to(dt)[None]
+    h = (_seq_lookup(params["item_table"], ids, cfg, dt)
+         + params["pos_table"].to(dt)[None])
+    h = _shard_batch_all(h, cfg)
+    mask = _shard_batch_all(mask, cfg)
+    b, s = h.shape[:2]
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
     for i in range(cfg.n_blocks):
         block = tree_map(lambda x: x[i], params["blocks"])
@@ -434,21 +581,27 @@ def bert4rec_loss(params: Params, batch: Dict[str, torch.Tensor],
     At production vocab (1e6 items) a full softmax over (B, S, V) is
     infeasible; when the batch carries shared sampled negatives (``neg_ids``)
     the loss is a sampled softmax over ``[gold | negatives]``, in chunks of
-    ``cfg.loss_chunk`` positions when that divides S."""
+    ``cfg.loss_chunk`` positions when that divides S. On a mesh the
+    negatives are shared by every rank and the full softmax is not offered
+    (its vocabulary would be row-sharded)."""
     ids = batch["uih_item_id"]
     mask_pos = batch["mask_pos"].to(torch.bool)               # (B, S) to predict
     inputs = torch.where(mask_pos, cfg.mask_token, ids)
     h = bert4rec_encode(params, inputs, batch["uih_mask"], cfg)  # (B, S, D)
-    n_pred = torch.clamp(mask_pos.sum(), min=1)
+    mask_pos_s = _shard_batch_all(mask_pos, cfg)
+    n_pred = torch.clamp(_section_sum(mask_pos_s.sum(), cfg), min=1)
     neg_ids = batch.get("neg_ids")
+    if neg_ids is None and cfg.mesh is not None:
+        raise ValueError("bert4rec_loss on a mesh needs batch['neg_ids']")
     if neg_ids is None:                                       # full softmax
         logits = (h @ params["item_table"].to(h.dtype).T).float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, ids[..., None].long())[..., 0]
         return torch.sum((logz - gold) * mask_pos) / n_pred
 
-    neg_emb = lookup(params["item_table"], neg_ids, h.dtype)  # (N, D) small
-    gold_emb = lookup(params["item_table"], ids, h.dtype)     # (B, S, D)
+    neg_emb = _lookup(params["item_table"], neg_ids, cfg, h.dtype)  # (N, D)
+    gold_emb = _shard_batch_all(
+        _seq_lookup(params["item_table"], ids, cfg, h.dtype), cfg)  # (B,S,D)
     gold_logit = torch.sum(h * gold_emb, dim=-1).float()      # (B, S)
     s = h.shape[1]
     lc = cfg.loss_chunk if cfg.loss_chunk and s % cfg.loss_chunk == 0 else s
@@ -460,7 +613,7 @@ def bert4rec_loss(params: Params, batch: Dict[str, torch.Tensor],
         m = torch.maximum(neg_logits.amax(dim=-1), gi)
         z = torch.exp(gi - m) + torch.exp(neg_logits - m[..., None]).sum(-1)
         total = total + torch.sum((m + torch.log(z) - gi)
-                                  * mask_pos[:, lo:lo + lc])
+                                  * mask_pos_s[:, lo:lo + lc])
     return total / n_pred
 
 
@@ -469,8 +622,10 @@ def bert4rec_forward(params: Params, batch: Dict[str, torch.Tensor],
     """Serving: score the candidate item for the next position."""
     h = bert4rec_encode(params, batch["uih_item_id"], batch["uih_mask"], cfg)
     user_repr = h[:, -1]                                      # (B, D)
-    cand = lookup(params["item_table"], batch["cand_item_id"], h.dtype)
-    return torch.sum(user_repr * cand, dim=-1)
+    cand = _shard_batch_all(
+        _lookup(params["item_table"], batch["cand_item_id"], cfg, h.dtype),
+        cfg)
+    return _gather_batch(torch.sum(user_repr * cand, dim=-1), cfg)
 
 
 # ===========================================================================
@@ -491,6 +646,8 @@ class DLRMUIHConfig:
     field_vocab: int = 1_000_000
     top_mlp: Tuple[int, ...] = (512, 256)
     compute_dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None              # row-sharded lookups when set
+    data_axes: Tuple[str, ...] = ("data",)
     remat: bool = True
     q_chunk: int = 512
 
@@ -541,14 +698,16 @@ def _encoder_block(h: torch.Tensor, block: Params, positions: torch.Tensor,
 
 
 def _dlrm_uih_sequence(params: Params, batch: Dict[str, torch.Tensor],
-                       cfg: DLRMUIHConfig, remat: bool) -> torch.Tensor:
-    """The UIH sequence encoder (causal): (B, S) history -> (B, S, D)."""
+                       cfg: DLRMUIHConfig, remat: bool):
+    """The UIH sequence encoder (causal): (B, S) history -> (B, S, D), and
+    the history's mask, both narrowed to the encoder section's rows."""
     dt = cfg.compute_dtype
-    b, s = batch["uih_item_id"].shape
     attn_cfg = _attn_config(cfg)
-    h = (lookup(params["item_table"], batch["uih_item_id"], dt)
+    h = (_seq_lookup(params["item_table"], batch["uih_item_id"], cfg, dt)
          + lookup(params["action_table"], batch["uih_action_type"], dt))
-    mask = batch["uih_mask"]
+    h = _shard_batch_all(h, cfg)
+    mask = _shard_batch_all(batch["uih_mask"], cfg)
+    b, s = h.shape[:2]
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
     for i in range(cfg.n_seq_layers):
         block = tree_map(lambda x: x[i], params["seq_blocks"])
@@ -557,7 +716,7 @@ def _dlrm_uih_sequence(params: Params, batch: Dict[str, torch.Tensor],
                            attn_cfg, use_reentrant=False)
         else:
             h = _encoder_block(h, block, positions, mask, attn_cfg)
-    return L.rms_norm(h, params["seq_ln"])
+    return L.rms_norm(h, params["seq_ln"]), mask
 
 
 def _dlrm_uih_top(params: Params, user_seq: torch.Tensor, tgt: torch.Tensor,
@@ -585,22 +744,25 @@ def _dlrm_uih_top(params: Params, user_seq: torch.Tensor, tgt: torch.Tensor,
 def _dlrm_uih_fields(params: Params, batch: Dict[str, torch.Tensor],
                      cfg: DLRMUIHConfig):
     """The sparse field embeddings (B, F, E) and the dense projection
-    (B, E)."""
+    (B, E), narrowed to the encoder section's rows."""
     dt = cfg.compute_dtype
     ids = batch["sparse_ids"]
     offsets = torch.arange(cfg.n_sparse, device=ids.device) * cfg.field_vocab
-    sparse = lookup(params["sparse_tables"], ids + offsets, dt)
-    dense = mlp_apply(params["dense_proj"], batch["dense"].to(dt), 1)
+    sparse = _shard_batch_all(
+        _seq_lookup(params["sparse_tables"], ids + offsets, cfg, dt), cfg)
+    dense = mlp_apply(params["dense_proj"],
+                      _shard_batch_all(batch["dense"], cfg).to(dt), 1)
     return sparse, dense
 
 
-def dlrm_uih_forward(params: Params, batch: Dict[str, torch.Tensor],
+def _dlrm_uih_logits(params: Params, batch: Dict[str, torch.Tensor],
                      cfg: DLRMUIHConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
-    h = _dlrm_uih_sequence(params, batch, cfg, cfg.remat)           # (B, S, D)
-    mask = batch["uih_mask"]
+    h, mask = _dlrm_uih_sequence(params, batch, cfg, cfg.remat)     # (B, S, D)
     # target-aware pooling: attention of the candidate over history (DIN-style)
-    tgt = lookup(params["item_table"], batch["cand_item_id"], dt)   # (B, D)
+    tgt = _shard_batch_all(_lookup(params["item_table"],
+                                   batch["cand_item_id"], cfg, dt),
+                           cfg)                                     # (B, D)
     att = torch.einsum("bsd,bd->bs", h.float(), tgt.float())
     att = _attention(att / math.sqrt(cfg.d_seq), mask, dt)
     user_seq = torch.einsum("bs,bsd->bd", att, h)                    # (B, D)
@@ -608,10 +770,16 @@ def dlrm_uih_forward(params: Params, batch: Dict[str, torch.Tensor],
     return _dlrm_uih_top(params, user_seq, tgt, sparse, dense, cfg)
 
 
+def dlrm_uih_forward(params: Params, batch: Dict[str, torch.Tensor],
+                     cfg: DLRMUIHConfig) -> torch.Tensor:
+    return _gather_batch(_dlrm_uih_logits(params, batch, cfg), cfg)
+
+
 def dlrm_uih_loss(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: DLRMUIHConfig) -> torch.Tensor:
-    return bce_with_logits(dlrm_uih_forward(params, batch, cfg),
-                           batch["label"])
+    return _global_mean(bce_with_logits(
+        _dlrm_uih_logits(params, batch, cfg),
+        _shard_batch_all(batch["label"], cfg)), cfg)
 
 
 # ===========================================================================
@@ -624,7 +792,7 @@ def bert4rec_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
                               ) -> torch.Tensor:
     h = bert4rec_encode(params, batch["uih_item_id"], batch["uih_mask"], cfg)
     user_repr = h[:, -1]                                       # (1, D)
-    cand = lookup(params["item_table"], cand_ids, h.dtype)     # (N, D)
+    cand = _lookup(params["item_table"], cand_ids, cfg, h.dtype)   # (N, D)
     return user_repr @ cand.T                                  # (1, N)
 
 
@@ -648,7 +816,7 @@ def dien_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
     dt = cfg.compute_dtype
     e, valid, mask = _dien_history(params, batch, cfg)         # (1, S, 2D)
     interests = _interest_states(params["gru1"], e, valid)     # (1, S, H)
-    tgt = _dien_target(params, cand_ids, cand_cats, dt)        # (N, 2D)
+    tgt = _dien_target(params, cand_ids, cand_cats, cfg)       # (N, 2D)
     proj = interests[0].float() @ params["att_w"].to(dt).float()   # (S, 2D)
     att = _attention(tgt.float() @ proj.T, valid, dt)          # (N, S)
     final = _augru_final(params["augru"], interests, att, valid)   # (N, H)
@@ -666,9 +834,9 @@ def dlrm_uih_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
     dt = cfg.compute_dtype
     if batch["uih_item_id"].shape[0] != 1:
         raise ValueError("dlrm_uih_score_candidates scores one user")
-    h = _dlrm_uih_sequence(params, batch, cfg, remat=False)[0]      # (S, D)
+    h = _dlrm_uih_sequence(params, batch, cfg, remat=False)[0][0]   # (S, D)
     n = cand_ids.shape[0]
-    tgt = lookup(params["item_table"], cand_ids, dt)                 # (N, D)
+    tgt = _lookup(params["item_table"], cand_ids, cfg, dt)          # (N, D)
     att = tgt.float() @ h.float().T                                  # (N, S)
     att = _attention(att / math.sqrt(cfg.d_seq), batch["uih_mask"], dt)
     user_seq = att @ h                                               # (N, D)

@@ -6,12 +6,14 @@ float32. Scalars (learning rate, bias corrections) are computed in float32
 as the reference computes them. ``adamw_update`` updates parameters, m and v
 IN PLACE: at the full DLRM-UIH width the item table alone is 5.1 GB, and a
 functional update would hold a second copy of every leaf.
+``make_train_step`` builds the reference's generic step: gradients of any
+``loss_fn(params, batch)``, optional compression, AdamW.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,9 +70,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale every leaf by ``min(1, max_norm / (norm + 1e-9))``, in place."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """Scale every leaf by ``min(1, max_norm / (norm + 1e-9))``, in place;
+    ``norm`` defaults to the global norm of ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -80,13 +85,15 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(
     params, grads, state: AdamWState, cfg: AdamWConfig,
-    decay_mask: Optional[Any] = None,
+    decay_mask: Optional[Any] = None, gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """One AdamW step. ``grads`` is a float32 tree like ``params`` and is
-    clipped in place; params, m and v are updated in place and returned."""
+    clipped in place; params, m and v are updated in place and returned.
+    ``gnorm`` is the gradients' global norm when the caller took it over
+    shards held by other ranks (default: the norm of ``grads``)."""
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
+    elif gnorm is None:
         gnorm = global_norm(grads)
     step = int(state.step) + 1
     lr = lr_schedule(step, cfg)
@@ -111,3 +118,38 @@ def adamw_update(
     new_state = AdamWState(step=torch.full_like(state.step, step),
                            m=state.m, v=state.v)
     return params, new_state, {"grad_norm": gnorm, "lr": float(lr)}
+
+
+def tree_grads(loss: torch.Tensor, params) -> Any:
+    """float32 gradients of ``loss`` for every leaf of ``params``, as a tree
+    like it (zeros for a leaf the loss does not reach)."""
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter([torch.zeros_like(p, dtype=torch.float32) if g is None
+               else g.float() for p, g in zip(leaves, grads)])
+    return tree_map(lambda _: next(it), params)
+
+
+def make_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    cfg: AdamWConfig,
+    compress: Optional[Callable] = None,
+):
+    """Generic train step: gradients + optional gradient compression +
+    AdamW. ``loss_fn(params, batch) -> scalar``; the step returns
+    ``(params, opt_state, {"loss", "grad_norm", "lr"})`` with the
+    parameters and moments updated in place. Leaves that do not require
+    gradients are switched to require them."""
+
+    def train_step(params, opt_state: AdamWState, batch):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            grads = tree_grads(loss, params)
+        if compress is not None:
+            grads = compress(grads)
+        params, opt_state, stats = adamw_update(params, grads, opt_state, cfg)
+        return params, opt_state, {"loss": loss.detach(), **stats}
+
+    return train_step

@@ -842,3 +842,45 @@ def test_smoke_tenant_on_card_equals_cpu(cuda, name, monkeypatch):
         got = fn(card, on_card, cfg).detach()
         assert got.is_cuda and torch.isfinite(got).all()
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,shape", [("dlrm-uih", "train_batch"),
+                                        ("dcn-v2", "serve_p99"),
+                                        ("dien", "retrieval_cand")])
+def test_smoke_cell_on_card_equals_cpu(cuda, arch, shape, monkeypatch):
+    """One SMOKE cell of each kind (``launch.steps``) run on the card and on
+    the CPU from the same sampled arguments: float32 with TF32 off, rtol
+    1e-4, atol 1e-5 (the CPU parity tests' tolerance)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sampling import sample_args
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.optimizer import AdamWState, adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    mesh = make_test_mesh(1, "cpu")
+    try:
+        cell = build_cell(get_arch(arch), shape, mesh, use_full=False)
+    finally:
+        dist.destroy_process_group()
+    cpu = sample_args(cell, "recsys", seed=0, device="cpu")
+    card = [tree_map(lambda t: t.detach().clone().to(cuda), a)
+            for a in cpu]
+    if cell.kind == "train":
+        card[1] = adamw_init(card[0])
+    want = cell.step_fn(*cpu)
+    got = cell.step_fn(*card)
+    if cell.kind == "train":
+        assert isinstance(got[1], AdamWState) and int(got[1].step) == 1
+        pairs = (list(zip(tree_leaves(got[0]), tree_leaves(want[0])))
+                 + [(got[2][k], want[2][k]) for k in ("loss", "grad_norm")])
+    else:
+        pairs = [(got, want)]
+    for g, w in pairs:
+        g, w = torch.as_tensor(g), torch.as_tensor(w)
+        assert g.device.type == "cuda" and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.detach().cpu().float(),
+                                   w.detach().float(), rtol=1e-4, atol=1e-5)
