@@ -2000,17 +2000,21 @@ def cells_phase(sim, smi: str) -> int:
     opened with a cell's placements is held against the plain feed, and the
     production dry run (16x16 and 2x16x16 fake meshes, a subprocess started
     first) must end ok for every cell. Returns the feed's
-    ``fused_densify`` launches."""
+    ``fused_densify`` launches. The one-rank process group the mesh
+    stands over is destroyed at the end, so later phases run as before."""
+    import torch.distributed as dist
+
     from repro_torch.configs import get_arch, list_archs
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import build_cell
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
     one_out = out_dir / "dryrun_one_torch.json"
     prod_out = out_dir / "dryrun_results_torch.json"
     one = start_dryrun("one", one_out)
     prod = start_dryrun("both", prod_out)
+    made_group = not dist.is_initialized()
     mesh = make_test_mesh(1, DEVICE)
     launches = cells_feed_check(sim, mesh)
     reckoned = finish_dryrun(one, one_out, ["one"])
@@ -2039,6 +2043,8 @@ def cells_phase(sim, smi: str) -> int:
                      f"collectives {e['collectives']['counts']} "
                      f"({e['collectives']['link_bytes']:.0f} link B/chip), "
                      f"bottleneck {e['roofline']['bottleneck']}")
+    if made_group:
+        dist.destroy_process_group()
     return launches
 
 

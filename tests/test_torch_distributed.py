@@ -22,6 +22,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from repro.models import embedding as JE
 from repro.models import recsys as JR
@@ -52,6 +53,40 @@ RANK_SCRIPT = textwrap.dedent('''
     def close(got, want, tol, what):
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=tol, atol=tol, err_msg=what)
+
+    def tiny(arch):
+        """A tiny config of ``arch``: (cfg, init, loss, score, the tables
+        its lookups read)."""
+        from repro_torch.models import recsys as R
+        f32 = torch.float32
+        return {
+            "dlrm-uih": (R.DLRMUIHConfig(
+                name="t", seq_len=16, d_seq=16, n_seq_layers=1, n_heads=2,
+                n_dense=4, n_sparse=2, embed_dim=8, item_vocab=256,
+                field_vocab=64, compute_dtype=f32),
+                R.init_dlrm_uih, R.dlrm_uih_loss,
+                R.dlrm_uih_score_candidates, ("item_table", "sparse_tables")),
+            "two-tower-retrieval": (R.TwoTowerConfig(
+                name="t", embed_dim=8, tower_mlp=(16, 8), item_vocab=64,
+                user_vocab=32, uih_len=6, compute_dtype=f32),
+                R.init_two_tower, R.two_tower_loss,
+                R.two_tower_score_candidates, ("item_table", "user_table")),
+            "dcn-v2": (R.DCNv2Config(
+                name="t", n_dense=4, n_sparse=3, embed_dim=4,
+                n_cross_layers=2, mlp=(8, 4), field_vocab=16,
+                compute_dtype=f32), R.init_dcn_v2, R.dcn_v2_loss,
+                R.dcn_v2_score_candidates, ("embed",)),
+            "dien": (R.DIENConfig(
+                name="t", embed_dim=4, seq_len=6, gru_dim=8, mlp=(8, 4),
+                item_vocab=64, cat_vocab=16, compute_dtype=f32),
+                R.init_dien, R.dien_loss, R.dien_score_candidates,
+                ("item_table", "cat_table")),
+            "bert4rec": (R.BERT4RecConfig(
+                name="t", embed_dim=8, n_blocks=1, n_heads=2, seq_len=8,
+                item_vocab=64, loss_chunk=4, compute_dtype=f32),
+                R.init_bert4rec, R.bert4rec_loss,
+                R.bert4rec_score_candidates, ("item_table",)),
+        }[arch]
 
     if check == "lookups":
         from repro_torch.models import embedding as E
@@ -118,6 +153,91 @@ RANK_SCRIPT = textwrap.dedent('''
             got = R.dlrm_uih_forward(local, {k: block(v, 2, d)
                                              for k, v in batch.items()}, mcfg)
         close(got, block(want, 2, d), 2e-5, "mesh forward vs mesh-free")
+
+    elif check.startswith("train-"):
+        # one cell's AdamW step on the 2x2 mesh (rank-local program:
+        # partial-sum gradients reduced over each parameter's replicated
+        # axes, ZeRO moments) against the single-device step, twice
+        import dataclasses
+        from repro_torch.launch import shardings as SH
+        from repro_torch.launch.steps import _sharded_train_step
+        from repro_torch.models import recsys as R
+        from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
+                                                 adamw_init, make_train_step)
+        from repro_torch.tree import tree_leaves, tree_map
+        arch = check[len("train-"):]
+        cfg, init, loss_fn, _, tables = tiny(arch)
+        batch = {k[2:]: torch.from_numpy(v) for k, v in data.items()
+                 if k.startswith("b/")}
+        opt = AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=10,
+                          weight_decay=0.1)
+        full = init(cfg, seed=0, device="cpu")
+        # every table the lookups read is row-sharded over model (the rule
+        # shards only tables of 8192+ rows; these are SMOKE-sized)
+        shape = tree_map(lambda t: t, full)
+        pspec = SH.recsys_param_specs(shape, mesh)
+        pspec = {k: (SH.P("model", None) if k in tables else v)
+                 for k, v in pspec.items()}
+        ospec = SH.opt_specs(pspec, shape, mesh)
+        mcfg = dataclasses.replace(cfg, mesh=mesh, data_axes=("data",))
+        local = tree_map(lambda p, sp: SH.local_block(p.detach(), sp, mesh)
+                         .clone(), full, pspec, is_leaf=SH.is_spec)
+        zeros = lambda sp, p: torch.zeros(SH.local_shape(tuple(p.shape), sp,
+                                                         mesh))
+        state = AdamWState(step=torch.zeros((), dtype=torch.int32),
+                           m=tree_map(zeros, ospec.m, full,
+                                      is_leaf=SH.is_spec),
+                           v=tree_map(zeros, ospec.v, full,
+                                      is_leaf=SH.is_spec))
+        step = _sharded_train_step(lambda p, b: loss_fn(p, b, mcfg), opt,
+                                   mesh, pspec, ospec)
+        ref_step = make_train_step(lambda p, b: loss_fn(p, b, cfg), opt)
+        ref_state = adamw_init(full)
+        mine = {k: v if k == "neg_ids" else block(v, 2, d)   # P(None)
+                for k, v in batch.items()}
+        for i in range(2):
+            local, state, got = step(local, state, mine)
+            full, ref_state, want = ref_step(full, ref_state, batch)
+            for k in ("loss", "grad_norm"):
+                close(got[k].detach(), want[k].detach(), 1e-5,
+                      f"step {i} {k}")
+            assert int(state.step) == int(ref_state.step) == i + 1
+            specs = tree_leaves(pspec, is_leaf=SH.is_spec)
+            for a, b, sp in zip(tree_leaves(local), tree_leaves(full), specs):
+                close(a.detach(), SH.local_block(b.detach(), sp, mesh), 1e-5,
+                      f"step {i} params")
+            specs = tree_leaves(ospec.m, is_leaf=SH.is_spec)
+            for a, b, sp in zip(tree_leaves(state.m),
+                                tree_leaves(ref_state.m), specs):
+                close(a, SH.local_block(b, sp, mesh), 1e-5, f"step {i} m")
+
+    elif check.startswith("score-"):
+        # one user against N candidates sharded over data x model (the
+        # retrieval cells' layout: data_axes hold every axis) against the
+        # single-device score
+        import dataclasses
+        from repro_torch.launch import shardings as SH
+        arch = check[len("score-"):]
+        cfg, init, _, score, tables = tiny(arch)
+        full = init(cfg, seed=0, device="cpu")
+        user = {k[2:]: torch.from_numpy(v)[1:2] for k, v in data.items()
+                if k.startswith("b/") and k[2:] not in (
+                    "label", "mask_pos", "neg_ids")}
+        cands = torch.from_numpy(data["cands"])
+        cats = torch.from_numpy(data["cats"])
+        local = {k: block(v, 2, m) if k in tables else v
+                 for k, v in full.items()}
+        mcfg = dataclasses.replace(cfg, mesh=mesh,
+                                   data_axes=("data", "model"))
+        both = SH.P(("data", "model"))
+        mine = [SH.local_block(c, both, mesh) for c in (cands, cats)]
+        extra = lambda c: (c[1],) if arch == "dien" else ()
+        with torch.no_grad():
+            want = score(full, user, cands, *extra((cands, cats)), cfg)
+            got = score(local, user, mine[0], *extra(mine), mcfg)
+        want = want.reshape(-1)
+        close(got.reshape(-1), SH.local_block(want, both, mesh), 1e-5,
+              f"{arch} scores")
 
     elif check == "feed":
         from torch.distributed.tensor import DTensor
@@ -247,3 +367,68 @@ def test_dlrm_uih_forward_with_mesh_equals_without(tmp_path):
 
 def test_cell_placed_feed_blocks_equal_the_unsharded_batch(tmp_path):
     _run("feed", tmp_path, {"unused": np.zeros(1)})
+
+
+def _train_batch(arch: str) -> dict:
+    """8 rows of ``arch``'s train inputs (the tiny configs of the rank
+    script), each history with at least one valid position."""
+    rng = np.random.default_rng(2)
+
+    def mask(s):
+        return np.arange(s)[None, :] >= rng.integers(0, s, 8)[:, None]
+
+    label = (rng.random(8) < 0.4).astype(np.float32)
+    ids = {"dlrm-uih": 256, "two-tower-retrieval": 64, "dien": 64,
+           "bert4rec": 64}.get(arch, 0)
+    if arch == "dlrm-uih":
+        out = {"uih_item_id": rng.integers(0, ids, (8, 16)),
+               "uih_action_type": rng.integers(0, 16, (8, 16)),
+               "uih_mask": mask(16), "cand_item_id": rng.integers(0, ids, 8),
+               "sparse_ids": rng.integers(0, 64, (8, 2)),
+               "dense": rng.standard_normal((8, 4)), "label": label}
+    elif arch == "two-tower-retrieval":
+        out = {"user_id": rng.integers(0, 32, 8),
+               "uih_item_id": rng.integers(0, ids, (8, 6)),
+               "uih_mask": mask(6), "cand_item_id": rng.integers(0, ids, 8)}
+    elif arch == "dcn-v2":
+        out = {"sparse_ids": rng.integers(0, 16, (8, 3)),
+               "dense": rng.standard_normal((8, 4)), "label": label}
+    elif arch == "dien":
+        out = {"uih_item_id": rng.integers(0, ids, (8, 6)),
+               "uih_category": rng.integers(0, 16, (8, 6)),
+               "uih_mask": mask(6), "cand_item_id": rng.integers(0, ids, 8),
+               "cand_category": rng.integers(0, 16, 8), "label": label}
+    else:
+        m = mask(8)
+        out = {"uih_item_id": rng.integers(0, ids, (8, 8)), "uih_mask": m,
+               "mask_pos": (rng.random((8, 8)) < 0.4) & m,
+               "neg_ids": rng.integers(0, ids, 16)}
+    return {f"b/{k}": (v.astype(np.int32) if v.dtype == np.int64 else
+                       v.astype(np.float32) if v.dtype == np.float64 else v)
+            for k, v in out.items()}
+
+
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "dcn-v2", "dien",
+                                  "bert4rec", "dlrm-uih"])
+def test_sharded_train_step_equals_the_single_device_step(arch, tmp_path):
+    """Two AdamW steps of a cell's rank-local program on the 2x2 mesh (row-
+    sharded tables, the batch over data x model, ZeRO moments) against the
+    single-device step on the whole batch: the global loss and gradient
+    norm, each rank's block of the parameters and of the first moment
+    (rtol = atol = 1e-5: the same float32 math summed in another order)."""
+    _run(f"train-{arch}", tmp_path, _train_batch(arch))
+
+
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "dcn-v2", "dien",
+                                  "bert4rec", "dlrm-uih"])
+def test_sharded_candidate_scores_equal_the_single_device_scores(arch,
+                                                                 tmp_path):
+    """One user against 16 candidates sharded over data x model (ids
+    all-gathered over ``model``, rows reduce-scattered back) against the
+    single-device score (rtol = atol = 1e-5)."""
+    rng = np.random.default_rng(3)
+    vocab = {"dcn-v2": 16, "dlrm-uih": 256}.get(arch, 64)
+    _run(f"score-{arch}", tmp_path, {
+        **_train_batch(arch),
+        "cands": rng.integers(0, vocab, 16).astype(np.int32),
+        "cats": rng.integers(0, 16, 16).astype(np.int32)})
