@@ -164,15 +164,18 @@ def _check_resume(spec: DatasetSpec, resume_from: dict) -> tuple:
 
 
 class BatchPlacement:
-    """Places a global device batch on a mesh, leaf by leaf, with a cell's
-    batch placements, as the reference's single controller lays a global
-    batch out: every rank holds the global batch (each opens the same
-    deterministic feed) and keeps its block of each leaf, with no
-    communication. A leaf the cell does not name (a feed batch carries more
-    keys than the model's inputs) takes ``default``: its leading dim over
-    the data axes, as the cell's own batch leaves. On a mesh of one device
-    the placement is the identity and the batch stays plain tensors;
-    otherwise each leaf becomes a ``DTensor`` (``DTensor.from_local``)."""
+    """Places a global batch on a mesh, leaf by leaf, with a cell's batch
+    placements, as the reference's single controller lays a global batch
+    out: every rank opens the same deterministic feed and keeps its block of
+    each leaf (``shardings.local_block``), with no communication. A leaf the
+    cell does not name (a feed batch carries more keys than the model's
+    inputs) takes ``default``: its leading dim over the data axes, as the
+    cell's own batch leaves. The blocks are plain tensors, the form a cell's
+    rank-local ``step_fn`` takes; on a mesh of one device the placement is
+    the identity.
+
+    ``payload_rows`` cuts a compact jagged payload to this rank's rows
+    before it is uploaded, so a rank moves and densifies only its block."""
 
     def __init__(self, specs: Dict[str, Any], default: Any, mesh: Any):
         self.specs = specs
@@ -182,19 +185,56 @@ class BatchPlacement:
     def spec(self, key: str):
         return self.specs.get(key, self.default)
 
-    def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def __call__(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
         if self.mesh.size() == 1:
             return batch
-        from torch.distributed.tensor import DTensor
+        from repro_torch.launch.shardings import local_block
 
-        from repro_torch.launch.shardings import local_block, named
+        return {k: local_block(v, self.spec(k), self.mesh).contiguous()
+                for k, v in batch.items()}
 
-        out = {}
+    def payload_rows(self, batch: Dict[str, np.ndarray]
+                     ) -> Optional[Dict[str, np.ndarray]]:
+        """This rank's rows of a compact jagged payload, whose densified
+        form is then this rank's block of every leaf; ``None`` on a mesh of
+        one device, or when some leaf's placement cuts more than the
+        batch's rows (the dense batch is then cut after the densify)."""
+        if self.mesh.size() == 1:
+            return None
+        from repro_torch.launch.mesh import axes_rank, axes_size
+
+        rows = self.default.dim_axes(0)
+        dense_keys = ["uih_mask"] + [
+            f"uih_{k[len('_arena_'):]}" for k in batch
+            if k.startswith("_arena_")] + [
+            k for k in batch if not k.startswith("_")]
+        for k in dense_keys:
+            sp = self.spec(k)
+            if (any(sp.dim_axes(d) for d in range(1, len(sp)))
+                    or sp.dim_axes(0) not in ((), rows)):
+                return None
+        lens = np.asarray(batch["uih_len"])
+        n = len(lens) // axes_size(self.mesh, rows)
+        lo = axes_rank(self.mesh, rows) * n
+        hi = lo + n
+        shared = np.zeros(len(lens) + 1, np.int64)
+        shared[1:] = np.cumsum(lens, dtype=np.int64)
+        out: Dict[str, np.ndarray] = {}
         for k, v in batch.items():
-            spec = self.spec(k)
-            out[k] = DTensor.from_local(
-                local_block(v, spec, self.mesh).contiguous(), self.mesh,
-                named(self.mesh, spec), run_check=False)
+            if k == "_seq_len":
+                out[k] = v
+            elif k.startswith("_arena_"):
+                offs = np.asarray(batch.get(f"_offsets_{k[len('_arena_'):]}",
+                                            shared))
+                out[k] = np.asarray(v)[offs[lo]:offs[hi]]
+            elif k.startswith("_offsets_"):
+                offs = np.asarray(v)[lo:hi + 1]
+                out[k] = offs - offs[0]
+            elif self.spec(k).dim_axes(0):
+                out[k] = np.asarray(v)[lo:hi]
+            else:
+                out[k] = v
         return out
 
 

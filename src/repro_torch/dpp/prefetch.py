@@ -90,7 +90,9 @@ class DevicePrefetcher:
     ``source`` is either a ``RebatchingClient``-like object (``get_full_batch``
     returning ``None`` at end of stream) or any iterable of host batches.
     ``place`` (optional) maps each device batch to its layout on a mesh
-    (``data.compile.BatchPlacement``), after the transfer and densify.
+    (``data.compile.BatchPlacement``), after the transfer and densify; where
+    it has ``payload_rows``, a compact payload is cut to this rank's rows
+    before the transfer instead.
     """
 
     def __init__(
@@ -169,9 +171,13 @@ class DevicePrefetcher:
             # compact jagged payload: upload arena+offsets only, densify and
             # delta-decode ON DEVICE (kernels/fused); the [B, L] zero padding
             # never crosses the link
-            dev = self.materialize(host_batch)
+            rows = getattr(self.place, "payload_rows", None)
+            local = rows(host_batch) if rows is not None else None
+            dev = self.materialize(host_batch if local is None else local)
             self.stats.h2d_bytes += self.materialize.last_h2d_bytes
-            return dev if self.place is None else self.place(dev)
+            if self.place is None or local is not None:
+                return dev
+            return self.place(dev)
         prepped = self.prep_fn(host_batch) if self.prep_fn else host_batch
         if not isinstance(prepped, dict):
             raise TypeError("DevicePrefetcher transfers dict batches, got "

@@ -9,8 +9,15 @@ the FULL cell, makes its arguments as fake tensors of rank 0's block shapes
 (``FakeTensorMode``: nothing is allocated at full size) and runs the step
 once under ``roofline.step_counts`` and ``MemTracker``. It records, per
 rank: the logical bytes of the step's inputs under their placements, the
-peak of live tensor bytes during the step, the counted FLOPs and bytes, the
-collectives and their ring-model link bytes, and the H100 roofline.
+peak of live tensor bytes during the step, the counted FLOPs and bytes (the
+eager program's traffic), the collectives and their ring-model link bytes,
+the H100 roofline, and the floor of the step's math (compulsory bytes and
+model FLOPs, ``roofline.analysis.compulsory_floor``).
+
+The reference also has a calibration pass that re-lowers each cell with
+its scans unrolled, because XLA's cost analysis counts a loop body once. An
+eager step dispatches every iteration of its loops, so this trace is
+already the calibrated count and the port has no second pass.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dlrm-uih --shape serve_p99 --mesh pod
@@ -38,7 +45,7 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.launch.steps import S, build_cell
-from repro_torch.roofline.analysis import from_compiled
+from repro_torch.roofline.analysis import compulsory_floor, from_compiled
 from repro_torch.roofline.step_counts import count_step
 from repro_torch.train.optimizer import AdamWState
 from repro_torch.tree import tree_leaves, tree_map
@@ -114,39 +121,10 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str) -> dict:
         "meta": {k: v for k, v in cell.meta.items() if k != "cfg"}
         | {"cfg": cell.meta["cfg"].name},
         "roofline": roof.to_dict(),
+        "floor": compulsory_floor(counts.compulsory_bytes, cell.model_flops,
+                                  chips),
         "ok": True,
     }
-
-
-def calibrate_cell(arch_id: str, shape_name: str, mesh_name: str) -> dict:
-    """Exact per-step flops/bytes/collective accounting.
-
-    The reference re-lowers with every scan unrolled (``unroll_scans=True``)
-    because ``cost_analysis`` counts a while-loop body once. An eager step
-    dispatches every iteration of its loops, so the production trace is
-    already exact: this is ``run_cell``'s count, in the reference's
-    calibration keys."""
-    spec = get_arch(arch_id)
-    mesh = mesh_named(mesh_name)
-    cell = build_cell(spec, shape_name, mesh)
-    counts = trace_cell(cell, mesh)["counts"]
-    return {"flops": counts.flops, "bytes": counts.bytes,
-            "link_bytes": counts.collectives.link_bytes,
-            "counts": counts.collectives.counts}
-
-
-def run_calibration(arch_id: str, shape_name: str, mesh_name: str) -> dict:
-    cal = calibrate_cell(arch_id, shape_name, mesh_name)
-    spec = get_arch(arch_id)
-    mesh = mesh_named(mesh_name)
-    cell = build_cell(spec, shape_name, mesh)
-    roof = from_compiled(
-        arch_id, shape_name, mesh_name, mesh.size(),
-        {"flops": cal["flops"], "bytes accessed": cal["bytes"]},
-        cal["link_bytes"], cal["counts"], cell.model_flops,
-    )
-    return {"calibration": cal, "roofline_calibrated": roof.to_dict(),
-            "model_flops": cell.model_flops}
 
 
 def _logical_bytes(cell, mesh) -> int:
@@ -191,8 +169,6 @@ def main() -> None:
     ap.add_argument("--mesh", default="both", choices=["pod", "multipod", "both", "one"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
-    ap.add_argument("--calibrate", action="store_true",
-                    help="add the calibration keys (exact for eager steps)")
     ap.add_argument("--out", type=Path, default=RESULTS,
                     help="results file (default: dryrun_results_torch.json "
                          "at the repository root)")
@@ -208,29 +184,6 @@ def main() -> None:
             shapes = [args.shape] if args.shape else list(spec.shapes)
             for shape_name in shapes:
                 key = f"{arch_id}|{shape_name}|{mesh_name}"
-                if args.calibrate:
-                    entry = done.get(key)
-                    if not (entry and entry.get("ok")):
-                        print(f"[skip] {key} (no baseline)")
-                        continue
-                    if "roofline_calibrated" in entry and not args.force:
-                        print(f"[skip] {key} (calibrated)")
-                        continue
-                    print(f"[cal ] {key} ...", flush=True)
-                    try:
-                        entry.update(run_calibration(arch_id, shape_name,
-                                                     mesh_name))
-                        r = entry["roofline_calibrated"]
-                        print(f"[ ok ] {key}: bottleneck={r['bottleneck']} "
-                              f"frac={r['roofline_fraction']:.3f} "
-                              f"useful={r['model_flops_ratio']:.2f}", flush=True)
-                    except Exception as e:
-                        failures.append(key)
-                        entry["calibration_error"] = f"{type(e).__name__}: {e}"
-                        print(f"[FAIL] {key}: {type(e).__name__}: {e}",
-                              flush=True)
-                    save_result(key, entry, args.out)
-                    continue
                 if key in done and done[key].get("ok") and not args.force:
                     print(f"[skip] {key}")
                     continue

@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.launch import shardings as SH
 from repro_torch.launch.steps import Cell, S
 from repro_torch.models import recsys as R
 from repro_torch.train.optimizer import AdamWState, adamw_init
@@ -104,3 +105,18 @@ def sample_args(cell: Cell, family: str, seed: int = 0,
             continue
         out.append(_sample_tree(arg, cfg, cell.meta, rng, device))
     return tuple(out)
+
+
+def local_args(cell: Cell, args: tuple, mesh) -> tuple:
+    """This rank's block of each of ``args`` (global tensors, as
+    ``sample_args`` makes them) under the cell's input placements, each a
+    tensor of its own: the form the rank-local ``cell.step_fn`` takes (its
+    train step updates parameters and moments in place). On a mesh of one
+    device every block is the whole tensor, and ``args`` come back as
+    they are."""
+    if mesh.size() == 1:
+        return args
+    return tuple(
+        tree_map(lambda x, spec: SH.local_block(x, spec, mesh).clone(),
+                 arg, sh)
+        for arg, sh in zip(args, cell.in_shardings))

@@ -10,7 +10,12 @@ column; dense rates, no sparsity):
                450 GB/s each direction)
 
 The counts come from ``roofline.step_counts`` (per rank: rank 0's program
-under the fake process group). The dominant term is the bottleneck;
+under the fake process group). Its byte count is the eager program's own
+traffic (every op's inputs and output, unfused), so the memory term above
+moves with the program: it says what this program costs, not what the
+step's math needs. ``compulsory_floor`` is that floor: the step's
+compulsory bytes (each input read once, each output written once) and its
+model FLOPs over the same rates. The dominant term is the bottleneck;
 roofline fraction = model_flops-derived ideal time / dominant term. The
 field names and ``to_dict`` keys are the reference's (``hlo_*`` name the
 counted values), so the two packages' result files compare.
@@ -223,6 +228,21 @@ def materialization_roofline(batch: int, seq_len: int, n_traits: int,
     return MaterializationRoofline(
         batch=batch, seq_len=seq_len, n_traits=n_traits,
         arena_rows=arena_rows, itemsize=itemsize, table_dim=table_dim)
+
+
+def compulsory_floor(compulsory_bytes_per_chip: float,
+                     model_flops_total: float, chips: int) -> Dict[str, Any]:
+    """The least time any program could take for a cell's step on ``chips``
+    H100s: its compulsory bytes (``StepCounts.compulsory_bytes``, per chip)
+    over HBM3 and its model FLOPs over the bf16 peak. Neither term depends
+    on how the step is written, so a time held against it does not flatter
+    a program that fuses less."""
+    t_memory = compulsory_bytes_per_chip / HBM_BW
+    t_compute = model_flops_total / (chips * PEAK_FLOPS)
+    return {"compulsory_bytes_per_chip": compulsory_bytes_per_chip,
+            "t_compute_s": t_compute, "t_memory_s": t_memory,
+            "t_bound_s": max(t_compute, t_memory),
+            "bottleneck": "compute" if t_compute > t_memory else "memory"}
 
 
 def from_compiled(arch: str, shape: str, mesh_name: str, chips: int,

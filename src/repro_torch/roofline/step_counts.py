@@ -18,6 +18,13 @@ and every aten op it dispatches is counted.
     table; an in-place scatter (``index_put_``, ``index_add_``, ...) counts
     its indices and values read and the rows it writes, not the whole
     destination.
+  * Compulsory bytes: the traffic the step's math cannot avoid, whatever
+    the program: every input read once and every output written once. An
+    input that is only gathered from (a table) is charged the rows its
+    gathers return, up to its size, and one that is only scattered into
+    the rows written; outputs are the tensors the step returns. Unlike
+    the count above it does not move when the program fuses, so it is the
+    memory term of a cell's floor (``roofline.analysis.compulsory_floor``).
   * Collectives: every ``torch.ops._c10d_functional`` collective, with the
     reference's ring-algorithm cost model per rank (``n`` = group size,
     ``bytes`` = this rank's result):
@@ -35,10 +42,11 @@ and every aten op it dispatches is counted.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import torch
 import torch.distributed.distributed_c10d as c10d
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
@@ -89,15 +97,47 @@ def _tensor_bytes(tree: Any) -> int:
                if isinstance(t, torch.Tensor))
 
 
-class _Counter(TorchDispatchMode):
-    """Counts bytes and collectives of every op dispatched under it."""
+def _storage(t: torch.Tensor) -> StorageWeakRef:
+    return StorageWeakRef(t.untyped_storage())
 
-    def __init__(self):
+
+class _Counter(TorchDispatchMode):
+    """Counts bytes and collectives of every op dispatched under it, and
+    the bytes each of ``inputs`` is read by (per storage, so a view of an
+    input is that input)."""
+
+    def __init__(self, inputs: Sequence[torch.Tensor] = ()):
         super().__init__()
         self.bytes = 0
         self.counts: Dict[str, int] = {}
         self.result_bytes: Dict[str, int] = {}
         self.link = 0.0
+        self.sizes = {_storage(t): t.untyped_storage().nbytes()
+                      for t in inputs}
+        self.read: Dict[StorageWeakRef, int] = {}
+
+    def _charge(self, packet: str, args, kwargs, out) -> None:
+        """Add what this op reads of the step's inputs to ``read``."""
+        first = args[0] if args else None
+        leaves, _ = tree_flatten((args, kwargs))
+        for t in leaves:
+            if not isinstance(t, torch.Tensor):
+                continue
+            ref = _storage(t)
+            size = self.sizes.get(ref)
+            if size is None:
+                continue
+            if t is first and packet in _GATHERS:
+                add = _tensor_bytes(out)
+            elif t is first and packet in _SCATTERS:
+                # the values: (self, indices, values) or (self, dim, index,
+                # source)
+                vals = (args[2] if packet in ("index_put_", "_index_put_impl_")
+                        else args[3:4])
+                add = _tensor_bytes(vals)
+            else:
+                add = size
+            self.read[ref] = min(size, self.read.get(ref, 0) + add)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -118,6 +158,8 @@ class _Counter(TorchDispatchMode):
                 self.link += link_bytes(op, nbytes, n)
         elif ns == "aten" and not func.is_view:
             packet = func.overloadpacket.__name__
+            if self.sizes:
+                self._charge(packet, args, kwargs, out)
             if packet in _GATHERS:
                 self.bytes += 2 * _tensor_bytes(out) + _tensor_bytes(
                     (args[1:], kwargs))
@@ -134,6 +176,7 @@ class StepCounts:
     flops: float
     bytes: float
     collectives: CollectiveStats
+    compulsory_bytes: float = 0.0
 
     @property
     def cost(self) -> Dict[str, float]:
@@ -144,10 +187,16 @@ class StepCounts:
 def count_step(fn, *args) -> StepCounts:
     """Run ``fn(*args)`` once under the counters; returns its counts (the
     caller enters ``FakeTensorMode`` around it to run on fake tensors)."""
+    inputs, _ = tree_flatten(args)
     flops = FlopCounterMode(display=False)
-    counter = _Counter()
+    counter = _Counter([t for t in inputs if isinstance(t, torch.Tensor)])
     with flops, counter:
-        fn(*args)
+        out = fn(*args)
+    outs, _ = tree_flatten(out)
+    written = sum(_tensor_bytes(t) for t in
+                  {id(t): t for t in outs
+                   if isinstance(t, torch.Tensor)}.values())
     return StepCounts(float(flops.get_total_flops()), float(counter.bytes),
                       CollectiveStats(counter.counts, counter.result_bytes,
-                                      counter.link))
+                                      counter.link),
+                      float(sum(counter.read.values()) + written))

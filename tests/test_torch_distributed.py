@@ -239,18 +239,28 @@ RANK_SCRIPT = textwrap.dedent('''
         close(got.reshape(-1), SH.local_block(want, both, mesh), 1e-5,
               f"{arch} scores")
 
-    elif check == "feed":
-        from torch.distributed.tensor import DTensor
+    elif check in ("feed", "feed-step"):
+        import dataclasses
         from repro_torch.configs import get_arch
         from repro_torch.core import events as ev
         from repro_torch.core.projection import TenantProjection
         from repro_torch.core.simulation import ProductionSim, SimConfig
         from repro_torch.data import DatasetSpec, SimSource, open_feed
         from repro_torch.dpp.featurize import FeatureSpec
-        from repro_torch.launch.steps import build_cell
+        from repro_torch.launch.steps import build_recsys_cell
 
-        cell = build_cell(get_arch("dlrm-uih"), "train_batch", mesh,
-                          use_full=False)
+        if check == "feed":
+            cfg = None
+        else:
+            # tables of 8192 rows, so the placement rule row-shards every
+            # table the lookups read, as it does at FULL
+            from repro_torch.models import recsys as R
+            cfg = R.DLRMUIHConfig(
+                name="t", seq_len=16, d_seq=16, n_seq_layers=1, n_heads=2,
+                n_dense=4, n_sparse=2, embed_dim=8, item_vocab=8192,
+                field_vocab=4096, compute_dtype=torch.float32, remat=False)
+        cell = build_recsys_cell(get_arch("dlrm-uih"), "train_batch", mesh,
+                                 use_full=cfg is not None, cfg_override=cfg)
         sim = ProductionSim(SimConfig(
             stream=ev.StreamConfig(n_users=8, n_items=2_000, days=3,
                                    events_per_user_day_mean=30.0, seed=7),
@@ -271,25 +281,65 @@ RANK_SCRIPT = textwrap.dedent('''
                                      label_fields=("click",)))
             f = open_feed(spec, sim, device="cpu", **kw)
             try:
-                return [b for b in f]
+                return [b for b in f], f.client_stats.h2d_bytes
             finally:
                 f.close(timeout=30.0)
 
-        plain, placed = feed(), feed(cell=cell, mesh=mesh)
+        (plain, plain_h2d), (placed, placed_h2d) = (
+            feed(), feed(cell=cell, mesh=mesh))
         assert len(plain) == len(placed) >= 3, (len(plain), len(placed))
+        # each rank uploads and densifies only its rows of the payload
+        assert 0 < placed_h2d < plain_h2d, (placed_h2d, plain_h2d)
         for a, b in zip(plain, placed):
             assert list(a) == list(b)
             for k in a:
-                assert isinstance(b[k], DTensor), k
+                assert type(b[k]) is torch.Tensor, (k, type(b[k]))
                 want = block(a[k], 2, d)
-                got = b[k].to_local()
+                got = b[k]
                 assert got.dtype == want.dtype and got.shape == want.shape
                 assert got.numpy().tobytes() == want.numpy().tobytes(), k
-                assert b[k].shape == a[k].shape, k
+
+        if check == "feed-step":
+            # the placed batches drive the cell's rank-local step: two
+            # AdamW steps against the single-device step on the whole
+            # batches (rtol = atol = 1e-5, the train checks' tolerance)
+            from repro_torch.launch import shardings as SH
+            from repro_torch.launch.sampling import local_args
+            from repro_torch.models import recsys as R
+            from repro_torch.train.optimizer import (AdamWConfig,
+                                                     adamw_init,
+                                                     make_train_step)
+            from repro_torch.tree import tree_leaves
+            full = R.init_dlrm_uih(cfg, seed=0, device="cpu")
+            state = adamw_init(full)
+            local, lstate = local_args(
+                cell, (full, state), mesh)
+            ref_step = make_train_step(
+                lambda p, b: R.dlrm_uih_loss(p, b, cfg), AdamWConfig())
+            for i, (a, b) in enumerate(zip(plain[:2], placed[:2])):
+                local, lstate, got = cell.step_fn(
+                    local, lstate, R.dlrm_uih_prep(b, cell.meta["cfg"]))
+                full, state, want = ref_step(full, state,
+                                             R.dlrm_uih_prep(a, cfg))
+                for k in ("loss", "grad_norm"):
+                    close(got[k].detach(), want[k].detach(), 1e-5,
+                          f"step {i} {k}")
+                specs = tree_leaves(cell.in_shardings[0], is_leaf=SH.is_spec)
+                for x, y, sp in zip(tree_leaves(local), tree_leaves(full),
+                                    specs):
+                    close(x.detach(), SH.local_block(y.detach(), sp, mesh),
+                          1e-5, f"step {i} params")
     dist.barrier()
     dist.destroy_process_group()
     print(f"rank {rank} {check} OK", flush=True)
 ''')
+
+
+def _below_other_tests() -> None:
+    """Run a rank process at a lower CPU priority than the test workers:
+    four of them at once would otherwise crowd out tests that run beside
+    this file and depend on thread timing."""
+    os.nice(10)
 
 
 def _run(check: str, tmp_path: Path, inputs: dict) -> None:
@@ -301,7 +351,7 @@ def _run(check: str, tmp_path: Path, inputs: dict) -> None:
     procs = [subprocess.Popen(
         [sys.executable, str(script), check, str(tmp_path), str(r)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=REPO) for r in range(WORLD)]
+        cwd=REPO, preexec_fn=_below_other_tests) for r in range(WORLD)]
     outs = []
     try:
         for p in procs:
@@ -367,6 +417,13 @@ def test_dlrm_uih_forward_with_mesh_equals_without(tmp_path):
 
 def test_cell_placed_feed_blocks_equal_the_unsharded_batch(tmp_path):
     _run("feed", tmp_path, {"unused": np.zeros(1)})
+
+
+def test_cell_placed_feed_drives_the_cells_train_step(tmp_path):
+    """The placed feed's batches are what the cell's rank-local step takes:
+    a DLRM-UIH train cell with row-sharded tables steps on them as the
+    single-device step does on the whole batches."""
+    _run("feed-step", tmp_path, {"unused": np.zeros(1)})
 
 
 def _train_batch(arch: str) -> dict:

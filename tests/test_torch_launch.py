@@ -222,9 +222,11 @@ def reference_production():
     """The reference's placements and logical bytes on both production
     meshes, from one subprocess with 512 host devices."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    # below the test workers' CPU priority, as the rank processes of
+    # test_torch_distributed.py are
     proc = subprocess.run([sys.executable, "-c", REFERENCE_SCRIPT],
                           capture_output=True, text=True, timeout=600,
-                          env=env, cwd=REPO)
+                          env=env, cwd=REPO, preexec_fn=lambda: os.nice(10))
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
