@@ -54,11 +54,12 @@ paths over one ``ProductionSim``:
    fault healed and no ``fused_densify`` launch (the reference densifies
    streamed batches on the host), and prints steps/s, freshness,
    starvation and H2D bytes. Its tensors are then released.
-1c. Cells: the launch layer's 20 recsys (arch x shape) cells at FULL on
-   the one-card mesh (``launch.mesh.make_test_mesh(1)``). A dry run
-   starts as a subprocess on the host's CPU: ``--mesh one`` reckons each
-   cell's peak, its eager traffic and its floor (compulsory bytes and
-   model FLOPs) from a fake-tensor trace of its step. Meanwhile a FULL
+1c. Cells: the launch layer's 44 (arch x shape) cells at FULL on the
+   one-card mesh (``launch.mesh.make_test_mesh(1)``): the 20 recsys cells
+   and the 24 LM/GNN zoo cells. A dry run starts on the host's CPU, one
+   subprocess an arch: ``--mesh one`` reckons each cell's peak, its eager
+   traffic and its floor (compulsory bytes and model FLOPs) from a
+   fake-tensor trace of its step. Meanwhile a FULL
    DLRM-UIH feed opened with the train cell's placements
    (``open_feed(cell=, mesh=)``) is held against the plain feed: its
    ``fused_densify`` launches and its batches byte for byte. Every cell
@@ -69,7 +70,16 @@ paths over one ``ProductionSim``:
    faster than its floor; ms a call, the step's peak beside the reckoned
    one, ``model_flops``, MFU, the floor and the eager traffic. Then, with
    no cell being timed, the production dry runs (16x16 and 2x16x16 fake
-   meshes, one subprocess each) must end ok for all 40 cells.
+   meshes, one subprocess each) must end ok for all 40 recsys cells (the
+   zoo's cells run on one rank until its multi-rank slice).
+1d. Zoo: the five LMs (Qwen3-4B and -8B, Granite-8B, Qwen3-30B-A3B,
+   DeepSeek-V2-Lite) served at FULL width and depth in bf16, weights drawn
+   on the card leaf by leaf: ``prefill`` of 4 prompts of 2048 tokens, the
+   cache padded to 2080 positions, 32 greedy ``decode_step``s, and the
+   last step's logits held against ``prefill`` over the 2080 tokens. Then
+   Qwen3-4B (12 of 36 layers) and DeepSeek-V2-Lite (3 of 27: MLA and MoE
+   backward) trained 5 AdamW steps at FULL width, seq 4096, batch 1. Each
+   model's tensors are released before the next.
 2. Serve: the full-width two-tower retriever
    (``configs/two_tower_retrieval.FULL``, 30.7 GB of float32 parameters, a
    5.1 GB bf16 index over 10,000,384 items) behind ``RetrievalServer``, with
@@ -1821,7 +1831,8 @@ CELL_PEAK_LIMIT = 70e9     # B: a cell whose reckoned peak reaches it stays
 #                            on the dry run (the card holds 80 GB)
 BF16_PEAK_FLOPS = 989.4e12  # H100 SXM5 dense bf16, NVIDIA data sheet
 DRYRUN_TIMEOUT_S = 420.0
-CELL_CALLS = {"train": 3, "serve": 10, "retrieval": 10}   # timed calls
+CELL_CALLS = {"train": 3, "serve": 10, "retrieval": 10,   # timed calls
+              "prefill": 3, "decode": 10}
 CELL_WARMUP = 2
 CELL_FEED_BATCHES = 4      # batches compared between the placed and plain feeds
 # a cell's step peak may exceed its reckoned peak by 10% and the CUDA
@@ -1829,26 +1840,30 @@ CELL_FEED_BATCHES = 4      # batches compared between the placed and plain feeds
 PEAK_SLACK, PEAK_SLACK_B = 1.10, 128 << 20
 
 
-def start_dryrun(mesh: str, out: Path):
-    """``python -m repro_torch.launch.dryrun --all --mesh <mesh>`` as a
-    subprocess on the host's CPU (the card hidden from it), writing ``out``
-    and its log beside it. Returns (process, log file, start time)."""
+def start_dryrun(mesh: str, out: Path, arch: str = ""):
+    """``python -m repro_torch.launch.dryrun --all --mesh <mesh>`` (or
+    ``--arch <arch>``) as a subprocess on the host's CPU (the card hidden
+    from it), writing ``out`` and its log beside it. Returns (process, log
+    file, start time)."""
     out.unlink(missing_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
     log = open(out.with_suffix(".log"), "w")
+    which = ["--arch", arch] if arch else ["--all"]
     proc = subprocess.Popen(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
-         "--all", "--mesh", mesh, "--force", "--out", str(out)],
+         *which, "--mesh", mesh, "--force", "--out", str(out)],
         cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
     return proc, log, time.perf_counter()
 
 
-def finish_dryrun(run, out: Path, meshes) -> dict:
+def finish_dryrun(run, out: Path, meshes, archs=None) -> dict:
     """Wait for a ``start_dryrun`` run (within ``DRYRUN_TIMEOUT_S`` of its
-    start) and require exit 0 and ``ok`` for every recsys cell on
-    ``meshes``. Returns its results by key."""
-    from repro_torch.configs import get_arch, list_archs
+    start) and require exit 0 and ``ok`` for every cell the dry run
+    traces of ``archs`` (default all) on ``meshes``. Returns its results
+    by key."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import archs_on
 
     proc, log, t0 = run
     try:
@@ -1863,12 +1878,14 @@ def finish_dryrun(run, out: Path, meshes) -> dict:
     tail = out.with_suffix(".log").read_text()[-2000:]
     require(rc == 0, f"dry run {' '.join(meshes)} exited {rc}:\n{tail}")
     results = json.loads(out.read_text())
-    keys = [f"{a}|{s}|{m}" for m in meshes for a in list_archs()
+    keys = [f"{a}|{s}|{m}" for m in meshes for a in archs_on(m, archs)
             for s in get_arch(a).shapes]
     bad = [k for k in keys if not results.get(k, {}).get("ok")]
     require(not bad, f"dry run cells not ok: {bad}")
-    say("cells", f"dry run --mesh {'+'.join(meshes)}: {len(keys)} cells ok "
-                 f"in {time.perf_counter() - t0:.3f} s (exit 0)")
+    say("cells", f"dry run --mesh {'+'.join(meshes)}"
+                 f"{' --arch ' + ','.join(archs) if archs else ''}: "
+                 f"{len(keys)} cells ok in {time.perf_counter() - t0:.3f} s "
+                 f"(exit 0)")
     return results
 
 
@@ -1923,7 +1940,7 @@ def cells_feed_check(sim, mesh) -> int:
     return launches
 
 
-def run_cell(cell, reckoned: dict) -> dict:
+def run_cell(cell, family: str, reckoned: dict) -> dict:
     """``sample_args`` on the card, ``CELL_WARMUP`` calls, then the kind's
     timed calls under CUDA events; the outputs checked, the peak and the
     model-FLOPs utilization printed beside the reckoned roofline."""
@@ -1935,7 +1952,7 @@ def run_cell(cell, reckoned: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    args = sample_args(cell, "recsys", seed=SEED, device=DEVICE)
+    args = sample_args(cell, family, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
     t_sample = time.perf_counter() - t0
     # a serving cell's float32 init before its bf16 cast is sampling's peak,
@@ -1977,8 +1994,13 @@ def run_cell(cell, reckoned: dict) -> dict:
         what = (f"losses {' '.join(f'{x:.5f}' for x in losses)}, "
                 f"opt_state.step {int(opt_state.step)}")
     else:
-        want = {"serve": (cell.meta.get("batch"),),
-                "retrieval": (cell.meta.get("n_candidates"),)}[cell.kind]
+        if cell.kind in ("prefill", "decode"):     # (logits, cache)
+            out = out[0]
+            want = (cell.args_spec[1]["tokens"].shape[0]
+                    if cell.kind == "prefill" else cell.meta["tokens"],)
+        else:
+            want = {"serve": (cell.meta.get("batch"),),
+                    "retrieval": (cell.meta.get("n_candidates"),)}[cell.kind]
         shape = tuple(out.shape)
         require(bool(torch.isfinite(out.float()).all())
                 and (shape[:1] == want or shape[-1:] == want),
@@ -2015,13 +2037,14 @@ def run_cell(cell, reckoned: dict) -> dict:
 
 
 def cells_phase(sim, smi: str) -> int:
-    """The launch layer on the card: every recsys (arch x shape) cell at
-    FULL on the one-card mesh whose peak (reckoned by a fake-tensor trace
-    of its step, ``dryrun --mesh one``) is under ``CELL_PEAK_LIMIT`` runs at
-    its own shape (``run_cell``); the rest stay on the dry run. A feed
-    opened with a cell's placements is held against the plain feed, and the
-    production dry runs (16x16 and 2x16x16 fake meshes, started once the
-    cells are timed) must end ok for every cell. Returns the feed's
+    """The launch layer on the card: every (arch x shape) cell, recsys and
+    zoo, at FULL on the one-card mesh whose peak (reckoned by a fake-tensor
+    trace of its step, ``dryrun --mesh one``, one process an arch side by
+    side) is under ``CELL_PEAK_LIMIT`` runs at its own shape
+    (``run_cell``); the rest stay on the dry run. A feed opened with a
+    cell's placements is held against the plain feed, and the production
+    dry runs (16x16 and 2x16x16 fake meshes, started once the cells are
+    timed) must end ok for every recsys cell. Returns the feed's
     ``fused_densify`` launches. The one-rank process group the mesh
     stands over is destroyed at the end, so later phases run as before."""
     import torch.distributed as dist
@@ -2032,12 +2055,18 @@ def cells_phase(sim, smi: str) -> int:
 
     out_dir = ROOT / "build" / "dryrun"
     out_dir.mkdir(parents=True, exist_ok=True)
-    one_out = out_dir / "dryrun_one_torch.json"
-    one = start_dryrun("one", one_out)
+    t0 = time.perf_counter()
+    ones = {a: (start_dryrun("one", out_dir / f"dryrun_one_{a}_torch.json",
+                             a), out_dir / f"dryrun_one_{a}_torch.json")
+            for a in list_archs()}
     made_group = not dist.is_initialized()
     mesh = make_test_mesh(1, DEVICE)
     launches = cells_feed_check(sim, mesh)
-    reckoned = finish_dryrun(one, one_out, ["one"])
+    reckoned = {}
+    for a, (run, out) in ones.items():
+        reckoned.update(finish_dryrun(run, out, ["one"], [a]))
+    say("cells", f"dry run --mesh one: {len(reckoned)} cells ok in "
+                 f"{time.perf_counter() - t0:.3f} s, {len(ones)} processes")
     ran, stayed = [], []
     for arch in list_archs():
         spec = get_arch(arch)
@@ -2050,7 +2079,7 @@ def cells_phase(sim, smi: str) -> int:
                              f"{CELL_PEAK_LIMIT:.0f} B: dry run only "
                              f"(counted {r['cost']['flops']:.6e} flops)")
                 continue
-            run_cell(build_cell(spec, shape, mesh), r)
+            run_cell(build_cell(spec, shape, mesh), spec.family, r)
             ran.append(f"{arch}|{shape}")
             release(f"cell {arch}|{shape}")
     say("cells", f"{len(ran)} cells ran at their own FULL shapes, "
@@ -2073,6 +2102,295 @@ def cells_phase(sim, smi: str) -> int:
     if made_group:
         dist.destroy_process_group()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the LM/MoE/GNN zoo on the card
+# ---------------------------------------------------------------------------
+
+ZOO_LMS = ("qwen3-4b", "qwen3-8b", "granite-8b", "qwen3-moe-30b-a3b",
+           "deepseek-v2-lite-16b")
+ZOO_BATCH = 4              # prompts served together
+ZOO_PROMPT = 2048          # tokens a prompt
+ZOO_DECODE = 32            # greedy decode steps after the prompt
+# the last decode step's logits against prefill's over all 2080 tokens,
+# relative Frobenius error: bf16 over 36 dense layers (PERF.md section 6)
+ZOO_DENSE_RTOL = 0.05
+# an MoE's top-k routing is discontinuous: bf16 rounding that differs
+# between prefill's and decode's kernels flips near-tied experts, so its
+# identity is held in float32 compute over the same bf16 weights, with
+# every (token, expert) pair kept (capacity is per call: a pair dropped by
+# one prefill and not the other would differ by definition; at random
+# init the router is imbalanced, and capacity factor 2.0 still dropped
+# pairs). At that capacity the float32 dispatch buffers of four prompts do
+# not fit beside Qwen3-MoE's 61 GB of weights: the check takes the first
+# prompt.
+ZOO_MOE_RTOL = 1e-3
+# FULL width, depth cut: the float32 master, gradients and AdamW moments
+# (16 B a parameter) of the full depth do not fit one card
+ZOO_TRAIN = {"qwen3-4b": 12, "deepseek-v2-lite-16b": 3}
+ZOO_TRAIN_SEQ = 4096
+ZOO_TRAIN_STEPS = 5
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Count the (token, expert) pairs the MoE dispatch drops while the
+    block runs (each expert's pairs past its capacity): yields a one-entry
+    list that holds the count."""
+    from repro_torch.models import moe
+
+    dispatch = moe.dispatch
+    dropped = [0]
+
+    def counting(idx, gate, cfg, cap, e_loc, offset=0):
+        load = idx.reshape(-1).bincount(minlength=cfg.n_experts)
+        dropped[0] += int((load - cap).clamp(min=0).sum())
+        return dispatch(idx, gate, cfg, cap, e_loc, offset)
+
+    moe.dispatch = counting
+    try:
+        yield dropped
+    finally:
+        moe.dispatch = dispatch
+
+
+def pad_cache(cache: dict, max_len: int) -> dict:
+    """``prefill``'s cache (L, B, S, ...) zero-padded along S to the
+    ``max_len`` positions decode writes into (the original is freed)."""
+    for k in list(cache):
+        c = cache[k]
+        out = c.new_zeros((c.shape[0], c.shape[1], max_len, *c.shape[3:]))
+        out[:, :, :c.shape[2]] = c
+        cache[k] = out
+        del c
+    return cache
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def zoo_identity(params, seq, cfg, what: str) -> tuple:
+    """Prefill ``seq[:, :ZOO_PROMPT]``, decode the rest of ``seq`` token by
+    token (teacher-forced), and return the last step's logits and
+    prefill's over all of ``seq``: (decode logits, prefill logits)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    n = seq.shape[1]
+    logits, cache = T.prefill(params, seq[:, :ZOO_PROMPT], cfg)
+    cache = pad_cache(cache, n)
+    for i in range(ZOO_PROMPT, n):
+        logits, cache = T.decode_step(params, cache, seq[:, i],
+                                      torch.full((seq.shape[0],), i,
+                                                 device=seq.device), cfg)
+    del cache
+    want = T.prefill(params, seq, cfg)[0]
+    require(bool(torch.isfinite(logits.float()).all())
+            and bool(torch.isfinite(want.float()).all()),
+            f"zoo {what}: non-finite logits")
+    return logits, want
+
+
+def serve_lm(arch: str, smi: str) -> dict:
+    """FULL ``arch`` in bf16 on the card: prefill, 32 greedy decode steps,
+    the decode/prefill identity, times and peaks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch).full
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = T.init(cfg, seed=SEED, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in params.parameters())
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ZOO_BATCH, ZOO_PROMPT)).astype(np.int64)).to(DEVICE)
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode(), counted_drops() as dropped:
+        torch.cuda.reset_peak_memory_stats()
+        e[0].record()
+        logits, cache = T.prefill(params, prompts, cfg)
+        e[1].record()
+        torch.cuda.synchronize()
+        prefill_peak = torch.cuda.max_memory_allocated()
+        prefill_dropped = dropped[0]
+        cache = pad_cache(cache, ZOO_PROMPT + ZOO_DECODE)
+        cache_bytes = sum(c.numel() * c.element_size()
+                          for c in cache.values())
+        torch.cuda.reset_peak_memory_stats()
+        seq = [prompts]
+        nxt = logits.argmax(-1)
+        e[2].record()
+        for i in range(ZOO_DECODE):
+            seq.append(nxt[:, None])
+            logits, cache = T.decode_step(
+                params, cache, nxt,
+                torch.full((ZOO_BATCH,), ZOO_PROMPT + i, device=DEVICE), cfg)
+            nxt = logits.argmax(-1)
+        e[3].record()
+        torch.cuda.synchronize()
+        decode_peak = torch.cuda.max_memory_allocated()
+        seq = torch.cat(seq, dim=1)                      # the 2080 tokens
+        del cache
+        want = T.prefill(params, seq, cfg)[0]
+        bf16_err = rel_err(logits, want)
+        bf16_argmax = float((logits.argmax(-1) == want.argmax(-1))
+                            .float().mean())
+        bf16_dropped = dropped[0]
+        del want
+        torch.cuda.empty_cache()
+        if cfg.moe is None:
+            require(bf16_err <= ZOO_DENSE_RTOL,
+                    f"zoo {arch}: decode's last logits differ from "
+                    f"prefill's over {seq.shape[1]} tokens by {bf16_err} "
+                    f"(relative Frobenius) > {ZOO_DENSE_RTOL}")
+            check = f"held at <= {ZOO_DENSE_RTOL}"
+        else:
+            f32 = dataclasses.replace(
+                cfg, compute_dtype=torch.float32,
+                moe=dataclasses.replace(
+                    cfg.moe,
+                    capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            dropped[0] = 0
+            got, want = zoo_identity(params, seq[:1], f32, arch)
+            f32_err = rel_err(got, want)
+            f32_argmax = float((got.argmax(-1) == want.argmax(-1))
+                               .float().mean())
+            require(dropped[0] == 0,
+                    f"zoo {arch}: {dropped[0]} pairs dropped at a capacity "
+                    f"of every token")
+            require(f32_err <= ZOO_MOE_RTOL,
+                    f"zoo {arch}: float32 decode's last logits differ from "
+                    f"prefill's by {f32_err} > {ZOO_MOE_RTOL}")
+            check = (f"reported (top-k routing flips under bf16 rounding); "
+                     f"the first prompt in float32 compute over the same "
+                     f"weights, every pair kept (0 dropped): "
+                     f"{f32_err:.3e} <= {ZOO_MOE_RTOL}, argmax "
+                     f"{f32_argmax:.3f}")
+            del got, want
+    prefill_ms = e[0].elapsed_time(e[1])
+    step_ms = e[2].elapsed_time(e[3]) / ZOO_DECODE
+    active = cfg.active_param_count()
+    floor_ms = 2.0 * active * ZOO_BATCH * ZOO_PROMPT / BF16_PEAK_FLOPS * 1e3
+    require(prefill_ms >= floor_ms,
+            f"zoo {arch}: prefill {prefill_ms} ms under its floor {floor_ms}")
+    say("zoo", f"{arch} serve (FULL, {cfg.n_layers} layers, bf16 weights "
+               f"{w_bytes} B drawn on the card in {t_init:.3f} s): prefill "
+               f"B={ZOO_BATCH} x {ZOO_PROMPT} {prefill_ms:.6f} ms (floor "
+               f"2 x {active} active params x tokens / 989.4e12 = "
+               f"{floor_ms:.6f} ms, {prefill_ms / floor_ms:.3f} x; peak "
+               f"{prefill_peak} B, {prefill_dropped} pairs dropped); decode "
+               f"{step_ms:.6f} ms a step over {ZOO_DECODE} greedy steps "
+               f"(KV cache {cache_bytes} B at {ZOO_PROMPT + ZOO_DECODE} "
+               f"positions, step peak {decode_peak} B); last step vs "
+               f"prefill over {seq.shape[1]} tokens in bf16: relative "
+               f"Frobenius {bf16_err:.6e}, argmax agreement "
+               f"{bf16_argmax:.3f} ({bf16_dropped - prefill_dropped} pairs "
+               f"dropped in that prefill), {check} ({smi})")
+    del params, logits, seq, prompts
+    return {"prefill_ms": prefill_ms, "floor_ms": floor_ms,
+            "step_ms": step_ms, "rel_err": bf16_err}
+
+
+def train_lm(arch: str, n_layers: int, smi: str) -> dict:
+    """FULL-width ``arch`` cut to ``n_layers`` trained ``ZOO_TRAIN_STEPS``
+    AdamW steps through ``make_train_step`` at seq ``ZOO_TRAIN_SEQ``,
+    batch 1: a finite loss that changes, a finite gradient norm, the
+    optimizer's step count."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             make_train_step)
+
+    cfg = dataclasses.replace(get_arch(arch).full, n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(cfg, seed=SEED, device=DEVICE)
+    n_params = sum(t.numel() for t in params.parameters())
+    opt = adamw_init(params)
+
+    def loss(p, batch):
+        return T.loss_fn(p, batch["tokens"], batch["targets"], cfg)
+
+    step = make_train_step(loss, AdamWConfig())
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (1, ZOO_TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(DEVICE),
+             "targets": torch.from_numpy(toks[:, 1:]).to(DEVICE)}
+    losses, norms = [], []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for i in range(ZOO_TRAIN_STEPS):
+        if i == 1:
+            e0.record()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    e1.record()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"zoo {arch} train: losses {losses}, grad norms {norms}")
+    require(len(set(losses)) > 1, f"zoo {arch} train: the loss never changed")
+    require(int(opt.step) == ZOO_TRAIN_STEPS,
+            f"zoo {arch} train: opt_state.step {int(opt.step)}")
+    ms = e0.elapsed_time(e1) / (ZOO_TRAIN_STEPS - 1)
+    say("zoo", f"{arch} train (FULL width, {n_layers} of "
+               f"{get_arch(arch).full.n_layers} layers, {n_params} float32 "
+               f"params): {ZOO_TRAIN_STEPS} AdamW steps at seq "
+               f"{ZOO_TRAIN_SEQ}, batch 1; losses "
+               f"{' '.join(f'{x:.5f}' for x in losses)}, grad norms "
+               f"{' '.join(f'{x:.4f}' for x in norms)}, opt_state.step "
+               f"{int(opt.step)}; {ms:.3f} ms a step after the first "
+               f"({1e3 / ms:.3f} steps/s), peak {peak} B ({smi})")
+    del params, opt, batch
+    return {"ms": ms, "peak": peak}
+
+
+def zoo_phase(smi: str) -> dict:
+    """The five FULL LMs served and two trained at FULL width, one model's
+    tensors released before the next. None of the four kernels is on the
+    zoo's path: their counts must not move."""
+    from repro_torch.kernels.delta_decode import ops as dd
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.fused import ops
+    from repro_torch.kernels.jagged import ops as jg
+
+    wrappers = (ops.fused_densify, eb.embedding_bag, jg.jagged_to_padded,
+                dd.delta_decode)
+    before = [w.launches for w in wrappers]
+    out = {}
+    for arch in ZOO_LMS:
+        out[f"{arch}|serve"] = serve_lm(arch, smi)
+        release(f"zoo {arch} serve")
+    for arch, n_layers in ZOO_TRAIN.items():
+        out[f"{arch}|train"] = train_lm(arch, n_layers, smi)
+        release(f"zoo {arch} train")
+    moved = [w.launches - n for w, n in zip(wrappers, before)]
+    require(not any(moved), f"zoo: kernel launches {moved} on its path")
+    say("zoo", "0 launches of the four kernels (none is on the zoo's path)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2156,6 +2474,56 @@ def model_check_phase():
                     f"the CPU: {err}")
             errs.append(f"{fn.__name__} {err:.3e}")
         say("model", f"SMOKE {name} on the card == CPU float32 within rtol "
+                     f"1e-4, atol 1e-5 (max abs diff: {', '.join(errs)})")
+    zoo_check(rng)
+
+
+def zoo_check(rng) -> None:
+    """Each zoo SMOKE config: the same parameters on the CPU and on the
+    card, the loss and the prefill logits (LMs) or the forward and the loss
+    (MeshGraphNet) compared, float32 at rtol 1e-4, atol 1e-5."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as G
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    def on(dev, arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    for arch in (*ZOO_LMS, "meshgraphnet"):
+        cfg = get_arch(arch).smoke
+        if arch == "meshgraphnet":
+            n, e = 40, 160
+            arrays = [rng.standard_normal((n, cfg.d_node_in)).astype("f4"),
+                      rng.standard_normal((e, cfg.d_edge_in)).astype("f4"),
+                      rng.integers(0, n, e), rng.integers(0, n, e),
+                      rng.standard_normal((n, cfg.d_out)).astype("f4")]
+            fns = {"forward": lambda p, a: G.forward(p, *a[:4], cfg),
+                   "loss_fn": lambda p, a: G.loss_fn(p, *a, cfg)}
+            init = G.init
+        else:
+            arrays = [rng.integers(0, cfg.vocab, (2, 32)),
+                      rng.integers(0, cfg.vocab, (2, 32))]
+            fns = {"loss_fn": lambda p, a: T.loss_fn(p, *a, cfg),
+                   "prefill": lambda p, a: T.prefill(p, a[0], cfg)[0]}
+            init = T.init
+        cpu = init(cfg, seed=SEED, device="cpu")
+        card = tree_map(lambda t: t.detach().to(DEVICE), cpu)
+        errs = []
+        for name, fn in fns.items():
+            want = fn(cpu, on("cpu", arrays)).detach()
+            got = fn(card, on(DEVICE, arrays)).detach()
+            err = float((got.cpu() - want).abs().max())
+            require(got.shape == want.shape
+                    and bool(torch.isfinite(got).all())
+                    and torch.allclose(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-5),
+                    f"SMOKE {arch} {name} on the card differs from the CPU: "
+                    f"{err}")
+            errs.append(f"{name} {err:.3e}")
+        say("model", f"SMOKE {arch} on the card == CPU float32 within rtol "
                      f"1e-4, atol 1e-5 (max abs diff: {', '.join(errs)})")
 
 
@@ -2700,6 +3068,9 @@ def main() -> int:
     densify["more"]["cells_feed_launches"] = cells_phase(sim, smi)
     say("cells", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     release("cells")
+    t0 = time.perf_counter()
+    zoo_phase(smi)
+    say("zoo", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
 
     params = two_tower_params()
     table = params["item_table"].detach()

@@ -5,9 +5,6 @@ Port of ``repro.configs.base``: the same ``ArchSpec`` fields and the same
 ``LM_SHAPES``, ``GNN_SHAPES`` and ``RECSYS_SHAPES`` values, as plain dicts.
 Every (arch x shape) cell is defined here; ``repro_torch.launch.steps`` turns
 a (family, config, shape) triple into a step function and its input specs.
-Only the ``recsys`` family is registered in the port so far (the LM and GNN
-zoo comes with its own slice); their shape tables are kept here so the two
-packages' tables stay equal.
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.gnn import MeshGraphNetConfig
 from repro_torch.models.recsys import (
     BERT4RecConfig,
     DCNv2Config,
@@ -27,6 +28,7 @@ from repro_torch.models.recsys import (
     DLRMUIHConfig,
     TwoTowerConfig,
 )
+from repro_torch.models.transformer import TransformerConfig
 from repro_torch.tree import to_parameter_dict, tree_leaves, tree_map
 
 _TWO_TOWER_KEYS = ("item_mlp", "item_table", "user_mlp", "user_table")
@@ -143,3 +145,70 @@ def bert4rec_params_from_numpy(tree: Mapping[str, Any], cfg: BERT4RecConfig,
         ("final_ln",): (d,),
         ("blocks", "attn", "wq"): (cfg.n_blocks, d, d),
     }, stacked=("blocks", cfg.n_blocks)), device)
+
+
+def transformer_params_from_numpy(tree: Mapping[str, Any],
+                                  cfg: TransformerConfig,
+                                  device: Any = "cuda") -> nn.ParameterDict:
+    """The JAX ``transformer.init`` tree (numpy leaves) as the port's
+    float32 parameters on ``device``, blocks stacked on axis 0. Raises if
+    the tree does not fit ``cfg`` (its attention, FFN and shapes)."""
+    d, n = cfg.d_model, cfg.n_layers
+    if cfg.attention == "mla":
+        h = cfg.n_heads
+        attn = {"wq": (d, h * (cfg.qk_nope_dim + cfg.qk_rope_dim)),
+                "w_dkv": (d, cfg.kv_lora_rank),
+                "w_k_rope": (d, cfg.qk_rope_dim),
+                "w_uk": (cfg.kv_lora_rank, h * cfg.qk_nope_dim),
+                "w_uv": (cfg.kv_lora_rank, h * cfg.v_head_dim),
+                "wo": (h * cfg.v_head_dim, d),
+                "kv_norm": (cfg.kv_lora_rank,)}
+    else:
+        hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        attn = {"wq": (d, hq), "wk": (d, hk), "wv": (d, hk), "wo": (hq, d)}
+        if cfg.qk_norm:
+            attn.update(q_norm=(cfg.head_dim,), k_norm=(cfg.head_dim,))
+    if cfg.moe is None:
+        ffn = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+               "w_down": (cfg.d_ff, d)}
+    else:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff
+        ffn = {"router": (d, e), "w_in": (e, d, 2 * f), "w_out": (e, f, d)}
+        if cfg.moe.n_shared:
+            fs = cfg.moe.n_shared * f
+            ffn.update(shared_w_in=(d, 2 * fs), shared_w_out=(fs, d))
+    shapes = {("embed",): (cfg.vocab, d), ("unembed",): (cfg.vocab, d),
+              ("final_norm",): (d,)}
+    _checked(tree, "transformer", ("blocks", "embed", "final_norm",
+                                   "unembed"), shapes)
+    blocks = tree["blocks"]
+    _checked(blocks, "transformer block", ("attn", "ffn", "ln1", "ln2"),
+             {("ln1",): (n, d), ("ln2",): (n, d)})
+    for part, want in (("attn", attn), ("ffn", ffn)):
+        _checked(blocks[part], f"transformer {part}", tuple(want),
+                 {(k,): (n, *shape) for k, shape in want.items()})
+    return _params(tree, device)
+
+
+def meshgraphnet_params_from_numpy(tree: Mapping[str, Any],
+                                   cfg: MeshGraphNetConfig,
+                                   device: Any = "cuda") -> nn.ParameterDict:
+    """The JAX ``gnn.init`` tree (numpy leaves) as the port's float32
+    parameters on ``device``, blocks stacked on axis 0. Raises if the tree
+    does not fit ``cfg``."""
+    h, m = cfg.d_hidden, cfg.mlp_layers
+    _checked(tree, "MeshGraphNet", ("blocks", "decoder", "edge_encoder",
+                                    "node_encoder"), {
+        ("node_encoder", "w0"): (cfg.d_node_in, h),
+        ("edge_encoder", "w0"): (cfg.d_edge_in, h),
+        ("decoder", f"w{m - 1}"): (h, cfg.d_out),
+    }, mlps={"node_encoder": m, "edge_encoder": m, "decoder": m},
+        stacked=("blocks", cfg.n_layers))
+    blocks = tree["blocks"]
+    _checked(blocks, "MeshGraphNet block", ("edge_ln", "edge_mlp", "node_ln",
+                                            "node_mlp"), {
+        ("edge_mlp", "w0"): (cfg.n_layers, 3 * h, h),
+        ("node_mlp", "w0"): (cfg.n_layers, 2 * h, h),
+        ("edge_ln",): (cfg.n_layers, h),
+    }, mlps={"edge_mlp": m, "node_mlp": m})
+    return _params(tree, device)

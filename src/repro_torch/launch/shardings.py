@@ -1,8 +1,10 @@
-"""Parameter / optimizer-state / input placement rules for the recsys
-family.
+"""Parameter / optimizer-state / input placement rules.
 
-Port of ``repro.launch.shardings`` (the LM and GNN rules come with the model
-zoo). Conventions (DESIGN.md §3):
+Port of ``repro.launch.shardings`` for the recsys family; the LM and GNN
+cells run on one rank so far, where every placement is the whole tensor
+(``replicated``), and their production rules (``lm_param_specs``,
+``gnn_param_specs``) come with the zoo's multi-rank slice. Conventions
+(DESIGN.md §3):
 
   * Optimizer moments: parameter spec + ZeRO sharding of the first divisible
     unsharded dim over the data axes (ZeRO-2).
@@ -113,6 +115,11 @@ def recsys_param_specs(params_shape, mesh) -> Any:
         return P(*([None] * nd))
 
     return _map_with_path(rule, params_shape)
+
+
+def replicated(params_shape) -> Any:
+    """Every leaf whole on every rank: ``P(None, ...)`` a dim."""
+    return tree_map(lambda l: P(*([None] * len(l.shape))), params_shape)
 
 
 def named(mesh, spec_tree):

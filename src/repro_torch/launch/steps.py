@@ -1,10 +1,9 @@
 """Cell builders: (arch x shape x mesh) -> step function + input specs +
 placements.
 
-Port of ``repro.launch.steps`` for the recsys family (the LM and GNN cells
-come with the model zoo). ``args_spec`` holds ``S`` records (shape, dtype),
-never allocated tensors: ``launch.sampling`` makes real inputs from them and
-``launch.dryrun`` makes fake ones.
+Port of ``repro.launch.steps``. ``args_spec`` holds ``S`` records (shape,
+dtype), never allocated tensors: ``launch.sampling`` makes real inputs from
+them and ``launch.dryrun`` makes fake ones.
 
 Eager PyTorch has no SPMD partitioner, so a cell's ``step_fn`` is the
 rank-local program: it takes this rank's block of every argument (as
@@ -19,6 +18,14 @@ set ``data_axes`` to every axis (their candidates are sharded over all of
 them), and the train step reduces each gradient over the axes its
 parameter is replicated on and updates ZeRO-sharded moments on this rank's
 slice (``_sharded_train_step``).
+
+The LM and GNN cells run on a mesh of one rank: the model functions take
+the mesh (an MoE then runs its rank-local ``shard_map`` bodies as rank 0,
+and the decode cells switch the experts to the reference's ``2d`` layout),
+and every placement is the whole tensor. A larger mesh raises
+``NotImplementedError``: rank-local tensor parallelism, the
+vocabulary-parallel loss and expert parallelism across ranks come with the
+zoo's multi-rank slice.
 """
 from __future__ import annotations
 
@@ -40,7 +47,9 @@ from repro_torch.launch.mesh import (
     data_axes_of,
 )
 from repro_torch.launch.shardings import P
+from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import (
     AdamWConfig,
     AdamWState,
@@ -90,6 +99,195 @@ def _div(b: int, axes_size_: int) -> bool:
 def _batch_axes(mesh, b: int):
     da = data_axes_of(mesh)
     return (da if _div(b, axes_size(mesh, da)) else None), da
+
+
+def _one_rank(mesh, family: str) -> None:
+    if mesh.size() > 1:
+        raise NotImplementedError(
+            f"{family} cells on a {mesh.size()}-rank mesh: rank-local tensor "
+            f"parallelism, the vocabulary-parallel loss and expert "
+            f"parallelism across ranks come with the zoo's multi-rank slice; "
+            f"this port runs them on one rank")
+
+
+def _adamw_shape(pshape) -> AdamWState:
+    return AdamWState(step=S((), torch.int32),
+                      m=tree_map(lambda l: S(l.shape, torch.float32), pshape),
+                      v=tree_map(lambda l: S(l.shape, torch.float32), pshape))
+
+
+def _bf16(pshape):
+    """Serving holds bf16 weights (no float32 master)."""
+    return tree_map(lambda l: S(l.shape, torch.bfloat16)
+                    if l.dtype.is_floating_point else l, pshape)
+
+
+def _no_grad(fn: Callable) -> Callable:
+    """A serving step: no autograd graph."""
+    def run(*args):
+        with torch.no_grad():
+            return fn(*args)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+def build_lm_cell(spec: ArchSpec, shape_name: str, mesh,
+                  use_full: bool = True, cfg_override=None) -> Cell:
+    _one_rank(mesh, "LM")
+    cfg = cfg_override or (spec.full if use_full else spec.smoke)
+    shp = spec.shapes[shape_name]
+    b, sl = shp["batch"], shp["seq_len"]
+    if not use_full:  # smoke: shrink shapes
+        b, sl = max(2, b // 128), min(sl, 64)
+    da = data_axes_of(mesh)
+    b_axes, _ = _batch_axes(mesh, b)
+    kind = shp["kind"]
+    moe_data_axes = da
+    if cfg.moe is not None and kind == "decode":
+        moe_data_axes = b_axes if b_axes is not None else ()
+        # decode: fully-resident 2D expert layout (no per-step all-gather)
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, ep_mode="2d"))
+    pshape = eval_shape(lambda: T.init(cfg, seed=0, device="cpu"))
+    if kind != "train":
+        pshape = _bf16(pshape)
+    pspec = SH.replicated(pshape)
+    n_params = cfg.active_param_count()
+
+    if kind == "train":
+        def loss(p, batch):
+            return T.loss_fn(p, batch["tokens"], batch["targets"], cfg,
+                             mesh=mesh, data_axes=da)
+
+        batch_spec = {"tokens": S((b, sl), torch.int32),
+                      "targets": S((b, sl), torch.int32)}
+        batch_sh = {"tokens": P(b_axes, None), "targets": P(b_axes, None)}
+        return Cell(
+            spec.arch_id, shape_name, kind,
+            make_train_step(loss, AdamWConfig()),
+            (pshape, _adamw_shape(pshape), batch_spec),
+            (pspec, SH.opt_specs(pspec, pshape, mesh), batch_sh),
+            (pspec, SH.opt_specs(pspec, pshape, mesh), P()),
+            model_flops=6.0 * n_params * b * sl,
+            meta={"tokens": b * sl, "cfg": cfg},
+        )
+
+    if kind == "prefill":
+        def prefill(p, batch):
+            return T.prefill(p, batch["tokens"], cfg, mesh=mesh, data_axes=da)
+
+        cache_sh = _kv_cache_spec(cfg, mesh, b, sl)[1]
+        return Cell(
+            spec.arch_id, shape_name, kind, _no_grad(prefill),
+            (pshape, {"tokens": S((b, sl), torch.int32)}),
+            (pspec, {"tokens": P(b_axes, None)}),
+            (P(b_axes, "model"), cache_sh),
+            model_flops=2.0 * n_params * b * sl,
+            meta={"tokens": b * sl, "cfg": cfg},
+        )
+
+    # decode
+    cache_shape, cache_sh = _kv_cache_spec(cfg, mesh, b, sl)
+
+    def decode(p, cache, batch):
+        return T.decode_step(p, cache, batch["token"], batch["position"], cfg,
+                             mesh=mesh, data_axes=moe_data_axes)
+
+    batch_spec = {"token": S((b,), torch.int32),
+                  "position": S((b,), torch.int32)}
+    batch_sh = {"token": P(b_axes), "position": P(b_axes)}
+    return Cell(
+        spec.arch_id, shape_name, kind, _no_grad(decode),
+        (pshape, cache_shape, batch_spec),
+        (pspec, cache_sh, batch_sh),
+        (P(b_axes, "model"), cache_sh),
+        model_flops=2.0 * n_params * b,   # + attention KV term reported in meta
+        meta={"tokens": b, "kv_len": sl, "cfg": cfg},
+    )
+
+
+def _kv_cache_spec(cfg, mesh, b: int, sl: int):
+    """The stacked (L, B, S, ...) cache's specs and placements: the batch
+    over the data axes and the sequence over ``model`` where the batch
+    splits, else the sequence over every axis (flash-decoding style)."""
+    da = data_axes_of(mesh)
+    if _div(b, axes_size(mesh, da)):
+        b_ax, s_ax = da, "model"
+    else:
+        b_ax, s_ax = None, tuple(all_axes_of(mesh))
+    dt = cfg.compute_dtype
+    if cfg.attention == "mla":
+        shape = {"c_kv": S((cfg.n_layers, b, sl, cfg.kv_lora_rank), dt),
+                 "k_pe": S((cfg.n_layers, b, sl, cfg.qk_rope_dim), dt)}
+        sh = {"c_kv": P(None, b_ax, s_ax, None),
+              "k_pe": P(None, b_ax, s_ax, None)}
+    else:
+        kv = S((cfg.n_layers, b, sl, cfg.n_kv_heads, cfg.head_dim), dt)
+        shape = {"k": kv, "v": kv}
+        sh = {"k": P(None, b_ax, s_ax, None, None),
+              "v": P(None, b_ax, s_ax, None, None)}
+    return shape, sh
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+def build_gnn_cell(spec: ArchSpec, shape_name: str, mesh,
+                   use_full: bool = True, cfg_override=None) -> Cell:
+    _one_rank(mesh, "GNN")
+    base_cfg = cfg_override or (spec.full if use_full else spec.smoke)
+    shp = spec.shapes[shape_name]
+    n, e, d_feat = shp["n_nodes"], shp["n_edges"], shp["d_feat"]
+    if not use_full:
+        n, e, d_feat = min(n, 64), min(e, 256), min(d_feat, 8)
+    cfg = dataclasses.replace(base_cfg, d_node_in=d_feat)
+    # pad edges to a multiple of the device count for clean sharding
+    ndev = mesh.size()
+    e_pad = int(math.ceil(e / ndev) * ndev)
+    axes = tuple(all_axes_of(mesh))
+    pshape = eval_shape(lambda: G.init(cfg, seed=0, device="cpu"))
+    pspec = SH.replicated(pshape)      # the reference's gnn_param_specs
+
+    def loss(p, batch):
+        return G.loss_fn(p, batch["node_feats"], batch["edge_feats"],
+                         batch["senders"], batch["receivers"],
+                         batch["targets"], cfg, edge_mask=batch["edge_mask"])
+
+    f32 = torch.float32
+    batch_spec = {
+        "node_feats": S((n, d_feat), f32),
+        "edge_feats": S((e_pad, cfg.d_edge_in), f32),
+        "senders": S((e_pad,), torch.int32),
+        "receivers": S((e_pad,), torch.int32),
+        "edge_mask": S((e_pad,), torch.bool),
+        "targets": S((n, cfg.d_out), f32),
+    }
+    batch_sh = {
+        "node_feats": P(None, None),          # replicated (vertex-cut)
+        "edge_feats": P(axes, None),
+        "senders": P(axes),
+        "receivers": P(axes),
+        "edge_mask": P(axes),
+        "targets": P(None, None),
+    }
+    # flops: per MP layer ~ edges * (3h->h MLP) + nodes * (2h->h MLP)
+    h = cfg.d_hidden
+    mp = cfg.n_layers * (e * (3 * h * h + h * h) + n * (2 * h * h + h * h)) * 2
+    enc = (n * d_feat * h + e * cfg.d_edge_in * h + n * h * cfg.d_out) * 2
+    ospec = SH.opt_specs(pspec, pshape, mesh)
+    return Cell(
+        spec.arch_id, shape_name, "train",
+        make_train_step(loss, AdamWConfig()),
+        (pshape, _adamw_shape(pshape), batch_spec),
+        (pspec, ospec, batch_sh),
+        (pspec, ospec, P()),
+        model_flops=3.0 * (mp + enc),        # fwd + bwd ~ 3x fwd
+        meta={"n_nodes": n, "n_edges": e, "cfg": cfg},
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -221,14 +419,6 @@ def _recsys_flops(arch_id: str, cfg, b: int) -> float:
     raise KeyError(arch_id)
 
 
-def _no_grad(fn: Callable) -> Callable:
-    """A serving step: no autograd graph."""
-    def run(*args):
-        with torch.no_grad():
-            return fn(*args)
-    return run
-
-
 def build_recsys_cell(spec: ArchSpec, shape_name: str, mesh,
                       use_full: bool = True, cfg_override=None) -> Cell:
     cfg = cfg_override or (spec.full if use_full else spec.smoke)
@@ -249,20 +439,14 @@ def build_recsys_cell(spec: ArchSpec, shape_name: str, mesh,
             cfg, mesh=mesh, data_axes=(axes if kind == "retrieval"
                                        else data_axes_of(mesh)))
     pshape = eval_shape(lambda: init_fn(cfg, seed=0, device="cpu"))
-    if kind != "train":  # serving holds bf16 weights
-        pshape = tree_map(
-            lambda l: S(l.shape, torch.bfloat16)
-            if l.dtype.is_floating_point else l, pshape)
+    if kind != "train":
+        pshape = _bf16(pshape)
     pspec = SH.recsys_param_specs(pshape, mesh)
     fwd_flops = _recsys_flops(spec.arch_id, cfg, b)
 
     if kind == "train":
         opt_cfg = AdamWConfig()
-        oshape = AdamWState(step=S((), torch.int32),
-                            m=tree_map(lambda l: S(l.shape, torch.float32),
-                                       pshape),
-                            v=tree_map(lambda l: S(l.shape, torch.float32),
-                                       pshape))
+        oshape = _adamw_shape(pshape)
         ospec = SH.opt_specs(pspec, pshape, mesh)
         batch_spec, batch_sh = _recsys_batch(spec.arch_id, cfg, b, mesh, True)
 
@@ -480,10 +664,10 @@ def make_streaming_feed(cell: Cell, spec, sim, mesh=None,
 
 def build_cell(spec: ArchSpec, shape_name: str, mesh, use_full=True,
                cfg_override=None) -> Cell:
-    if spec.family in ("lm", "gnn"):
-        raise NotImplementedError(
-            f"{spec.family} cells come with the model-zoo slice "
-            f"(transformer/moe/gnn), not yet ported")
+    if spec.family == "lm":
+        return build_lm_cell(spec, shape_name, mesh, use_full, cfg_override)
+    if spec.family == "gnn":
+        return build_gnn_cell(spec, shape_name, mesh, use_full, cfg_override)
     if spec.family == "recsys":
         return build_recsys_cell(spec, shape_name, mesh, use_full, cfg_override)
     raise KeyError(spec.family)

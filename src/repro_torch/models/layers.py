@@ -1,13 +1,19 @@
-"""Shared layers in plain PyTorch: RMSNorm, RoPE, GQA attention chunked over
-queries, SwiGLU MLP.
+"""Shared layers in plain PyTorch: RMSNorm, RoPE, qk-norm, GQA and MLA
+attention chunked over queries, SwiGLU MLP.
 
-Port of the parts of ``repro.models.layers`` the DLRM-UIH encoder uses.
-Parameters are dicts of tensors in the reference's layout (``wq`` is
-(d_model, H*Dh) and multiplies from the right). Attention is plain
-``torch.matmul``/``softmax``, chunked by ``q_chunk`` as the reference does
-(scores never live at (S, S)); it keeps the reference's finite ``-1e30``
-mask value, so a query position whose every key is masked (right-aligned
-rows) stays finite instead of turning NaN.
+Port of ``repro.models.layers``. Parameters are dicts of tensors in the
+reference's layout (``wq`` is (d_model, H*Dh) and multiplies from the
+right). Attention is plain ``torch.matmul``/``softmax``, chunked by
+``q_chunk`` as the reference does (scores never live at (S, S)); it keeps
+the reference's finite ``-1e30`` mask value, so a query position whose
+every key is masked (right-aligned rows) stays finite instead of turning
+NaN.
+
+The decode paths write the new token's cache entry in place (the caller's
+cache tensors are updated, and returned): at 32k positions a functional
+update would copy every layer's cache each step. Where the reference's
+``dynamic_update_slice`` clamps an out-of-range start into the cache, so
+does ``_write_at``.
 """
 from __future__ import annotations
 
@@ -18,13 +24,40 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import tree_leaves, tree_map
+
 Params = Dict[str, Any]
 MASK_VALUE = -1e30
 
 
-def _init(gen: torch.Generator, shape, scale=None, device="cuda"):
+_DRAW_BLOCK = 1 << 28   # float32 elements drawn at once for a narrow dtype
+
+
+def generator(device, seed: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (the
+    ``meta`` device draws nothing: a CPU generator stands in)."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev
+                           ).manual_seed(seed)
+
+
+def _init(gen: torch.Generator, shape, scale=None, device="cuda",
+          dtype: torch.dtype = torch.float32):
+    """Standard normal times ``scale`` (default ``1/sqrt(shape[0])``). A
+    dtype other than float32 is drawn in float32 a block of rows of axis 0
+    at a time (at most ``_DRAW_BLOCK`` elements) and cast block by block,
+    so the float32 peak is one block, never the leaf: a FULL MoE layer
+    stack's ``w_in`` is 77 GB in float32."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return torch.randn(shape, generator=gen, device=device).mul_(scale)
+    if dtype == torch.float32:
+        return torch.randn(shape, generator=gen, device=device).mul_(scale)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, _DRAW_BLOCK // max(1, math.prod(shape[1:])))
+    for lo in range(0, shape[0], rows):
+        n = min(rows, shape[0] - lo)
+        out[lo:lo + n] = torch.randn((n, *shape[1:]), generator=gen,
+                                     device=device).mul_(scale)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -65,7 +98,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6
 
 
 # ---------------------------------------------------------------------------
-# GQA attention, chunked over queries
+# GQA attention (optionally qk-normed), chunked over queries
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -74,18 +107,26 @@ class AttnConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    qk_norm: bool = False
     rope_theta: float = 1e6
     q_chunk: int = 1024   # queries per chunk: scores live at (B,H,q_chunk,S)
+    scores_f32: bool = True  # False: keep the score pipeline in compute dtype
+                             # (halves attention traffic; recsys encoders)
 
 
-def init_gqa(gen: torch.Generator, cfg: AttnConfig, device="cuda") -> Params:
+def init_gqa(gen: torch.Generator, cfg: AttnConfig, device="cuda",
+             dtype: torch.dtype = torch.float32) -> Params:
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
-        "wq": _init(gen, (d, h * dh), device=device),
-        "wk": _init(gen, (d, hk * dh), device=device),
-        "wv": _init(gen, (d, hk * dh), device=device),
-        "wo": _init(gen, (h * dh, d), device=device),
+    p = {
+        "wq": _init(gen, (d, h * dh), device=device, dtype=dtype),
+        "wk": _init(gen, (d, hk * dh), device=device, dtype=dtype),
+        "wv": _init(gen, (d, hk * dh), device=device, dtype=dtype),
+        "wo": _init(gen, (h * dh, d), device=device, dtype=dtype),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=device)
+    return p
 
 
 def _attend_chunked(
@@ -97,28 +138,35 @@ def _attend_chunked(
     kv_mask: Optional[torch.Tensor],  # (B, Sk) valid mask or None
     causal: bool,
     q_chunk: int,
+    scores_f32: bool = True,
 ) -> torch.Tensor:
-    """Scores and softmax in float32 (the reference's ``scores_f32``), the
-    value product in the compute dtype."""
+    """Scores, scale, mask and softmax in float32 with ``scores_f32``, else
+    in ``v.dtype`` (the reference's ``preferred_element_type``); the value
+    product in the compute dtype."""
     b, sq, h, dh = q.shape
     hk = k.shape[2]
     dv = v.shape[3]
     rep = h // hk
-    scale = 1.0 / math.sqrt(dh)
+    acc_dt = torch.float32 if scores_f32 else v.dtype
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=acc_dt)
     qc = min(q_chunk, sq)
-    k32 = k.float()
+    k_acc = k.to(acc_dt)
     outs = []
     for lo in range(0, sq, qc):
         qi = q[:, lo:lo + qc].reshape(b, -1, hk, rep, dh)   # (B, qc, Hk, rep, Dh)
         qpi = q_positions[:, lo:lo + qc]
-        s = torch.einsum("bqhrd,bkhd->bhrqk", qi.float(), k32) * scale
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qi.to(acc_dt), k_acc) * scale
         if causal:
             cm = (qpi[:, None, None, :, None]
                   >= kv_positions[:, None, None, None, :])
             s = torch.where(cm, s, MASK_VALUE)
         if kv_mask is not None:
             s = torch.where(kv_mask[:, None, None, None, :], s, MASK_VALUE)
-        p = torch.softmax(s, dim=-1).to(v.dtype)
+        if scores_f32:
+            p = torch.softmax(s, dim=-1).to(v.dtype)
+        else:   # jax.nn.softmax's steps, each rounded to the scores' dtype
+            e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            p = e / e.sum(dim=-1, keepdim=True)
         outs.append(torch.einsum("bhrqk,bkhd->bqhrd", p, v))
     return torch.cat(outs, dim=1).reshape(b, sq, h, dv)
 
@@ -131,6 +179,9 @@ def _qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
     q = (x @ params["wq"].to(dt)).reshape(b, s, h, dh)
     k = (x @ params["wk"].to(dt)).reshape(b, s, hk, dh)
     v = (x @ params["wv"].to(dt)).reshape(b, s, hk, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -148,8 +199,52 @@ def gqa_attention(
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
     out = _attend_chunked(q, k, v, positions, positions, kv_mask, causal,
-                          cfg.q_chunk)
+                          cfg.q_chunk, cfg.scores_f32)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"].to(x.dtype)
+
+
+def _write_at(cache: torch.Tensor, entry: torch.Tensor,
+              position: torch.Tensor) -> torch.Tensor:
+    """Write each row's one-token ``entry`` (B, 1, ...) into ``cache`` (B,
+    S, ...) at ``position`` (B,), in place, the start clamped into
+    ``[0, S-1]`` as ``dynamic_update_slice`` clamps it."""
+    b = cache.shape[0]
+    pos = position.long().clamp(0, cache.shape[1] - 1)
+    cache[torch.arange(b, device=cache.device), pos] = entry[:, 0].to(
+        cache.dtype)
+    return cache
+
+
+def _decode_mask(position: torch.Tensor, skv: int) -> torch.Tensor:
+    """(B, Skv): the cache entries at or before each row's position."""
+    return (torch.arange(skv, device=position.device)[None, :]
+            <= position.reshape(-1, 1))
+
+
+def gqa_decode(
+    params: Params,
+    x: torch.Tensor,              # (B, 1, D) new token
+    position: torch.Tensor,       # (B, 1) its position
+    k_cache: torch.Tensor,        # (B, Skv, Hk, Dh) rope'd cached keys
+    v_cache: torch.Tensor,        # (B, Skv, Hk, Dh)
+    cfg: AttnConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step: insert the new token's KV at ``position`` (in
+    place) and attend against the full cache. Returns (out, k_cache,
+    v_cache)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"gqa_decode takes one token a row, got {s}")
+    q, k_new, v_new = _qkv(params, x, position, cfg)
+    k_cache = _write_at(k_cache, k_new, position[:, 0])
+    v_cache = _write_at(v_cache, v_new, position[:, 0])
+    skv = k_cache.shape[1]
+    kv_mask = _decode_mask(position, skv)
+    kvp = torch.arange(skv, device=x.device)[None, :].expand(b, skv)
+    out = _attend_chunked(q, k_cache, v_cache, position, kvp, kv_mask, False,
+                          cfg.q_chunk)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ params["wo"].to(x.dtype)
+    return out, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +252,11 @@ def gqa_attention(
 # ---------------------------------------------------------------------------
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
-                device="cuda") -> Params:
+                device="cuda", dtype: torch.dtype = torch.float32) -> Params:
     return {
-        "w_gate": _init(gen, (d_model, d_ff), device=device),
-        "w_up": _init(gen, (d_model, d_ff), device=device),
-        "w_down": _init(gen, (d_ff, d_model), device=device),
+        "w_gate": _init(gen, (d_model, d_ff), device=device, dtype=dtype),
+        "w_up": _init(gen, (d_model, d_ff), device=device, dtype=dtype),
+        "w_down": _init(gen, (d_ff, d_model), device=device, dtype=dtype),
     }
 
 
@@ -170,3 +265,145 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ params["w_gate"].to(dt))
     u = x @ params["w_up"].to(dt)
     return (g * u) @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention, DeepSeek-V2): compressed KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 1e4
+    q_chunk: int = 1024
+
+
+def init_mla(gen: torch.Generator, cfg: MLAConfig, device="cuda",
+             dtype: torch.dtype = torch.float32) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+
+    def w(shape):
+        return _init(gen, shape, device=device, dtype=dtype)
+
+    return {
+        "wq": w((d, h * qd)),
+        "w_dkv": w((d, r)),                          # compress
+        "w_k_rope": w((d, cfg.qk_rope_dim)),         # shared rope key
+        "w_uk": w((r, h * cfg.qk_nope_dim)),
+        "w_uv": w((r, h * cfg.v_head_dim)),
+        "wo": w((h * cfg.v_head_dim, d)),
+        "kv_norm": torch.ones((r,), dtype=dtype, device=device),
+    }
+
+
+def _mla_q(params: Params, x: torch.Tensor, positions: torch.Tensor,
+           cfg: MLAConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope, q_pe), q_pe rope'd: (B, S, H, nope) and (B, S, H, rope)."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"].to(x.dtype)).reshape(
+        b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_pe = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def mla_new_cache_entries(params: Params, x: torch.Tensor,
+                          positions: torch.Tensor, cfg: MLAConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compressed cache entries for new tokens: (c_kv, k_pe)."""
+    dt = x.dtype
+    c_kv = rms_norm(x @ params["w_dkv"].to(dt), params["kv_norm"])
+    k_pe = apply_rope((x @ params["w_k_rope"].to(dt))[:, :, None, :],
+                      positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def mla_attention_train(
+    params: Params,
+    x: torch.Tensor,              # (B, S, D)
+    positions: torch.Tensor,      # (B, S)
+    cfg: MLAConfig,
+) -> torch.Tensor:
+    """Training/prefill path: decompress K/V and run standard causal MHA."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dt = x.dtype
+    q_nope, q_pe = _mla_q(params, x, positions, cfg)
+    c_kv, k_pe = mla_new_cache_entries(params, x, positions, cfg)
+    k_nope = (c_kv @ params["w_uk"].to(dt)).reshape(b, s, h, cfg.qk_nope_dim)
+    v = (c_kv @ params["w_uv"].to(dt)).reshape(b, s, h, cfg.v_head_dim)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    out = _attend_chunked(q_full, k_full, v, positions, positions, None, True,
+                          cfg.q_chunk)
+    return out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"].to(dt)
+
+
+def mla_attention_decode(
+    params: Params,
+    x: torch.Tensor,              # (B, 1, D)
+    position: torch.Tensor,       # (B, 1)
+    c_kv_cache: torch.Tensor,     # (B, Skv, r) compressed latents (normed)
+    k_pe_cache: torch.Tensor,     # (B, Skv, rope)
+    kv_mask: torch.Tensor,        # (B, Skv)
+    cfg: MLAConfig,
+) -> torch.Tensor:
+    """Decode path with the absorbed-matmul trick: score against the
+    compressed latents directly; W_uk/W_uv are absorbed into the query and
+    output sides, so a cached token reads r + rope values instead of
+    2*H*Dh. Scores and softmax in float32."""
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dt = x.dtype
+    q_nope, q_pe = _mla_q(params, x, position, cfg)
+    w_uk = params["w_uk"].to(dt).reshape(r, h, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)        # absorb W_uk
+    s_lat = torch.einsum("bshr,bkr->bhsk", q_lat.float(), c_kv_cache.float())
+    s_pe = torch.einsum("bshn,bkn->bhsk", q_pe.float(), k_pe_cache.float())
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scores = (s_lat + s_pe) * scale
+    scores = torch.where(kv_mask[:, None, None, :], scores, MASK_VALUE)
+    p = torch.softmax(scores, dim=-1).to(dt)
+    o_lat = torch.einsum("bhsk,bkr->bshr", p, c_kv_cache.to(dt))  # (B,1,H,r)
+    w_uv = params["w_uv"].to(dt).reshape(r, h, cfg.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)           # absorb W_uv
+    return out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# stacked layers (the reference's ``jax.vmap(block_init)`` layout)
+# ---------------------------------------------------------------------------
+
+def stack_blocks(n: int, make_block) -> Params:
+    """``n`` blocks from ``make_block()`` stacked on axis 0, filled layer by
+    layer into preallocated leaves: the peak is the stack and one block."""
+    first = make_block()
+    flat = tree_leaves(first)
+    stacked = [torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+               for t in flat]
+    for i in range(n):
+        block = first if i == 0 else make_block()
+        for dst, src in zip(stacked, tree_leaves(block)):
+            dst[i].copy_(src)
+        del block
+    it = iter(stacked)
+    return tree_map(lambda _: next(it), first)
+
+
+def unstack(blocks: Params, n: int):
+    """The ``n`` per-layer views of stacked ``blocks``, one ``unbind`` a
+    leaf (its backward stacks the layers' gradients once, where indexing
+    each layer would add a zero-padded full-size gradient per layer)."""
+    flat = [t.unbind(0) for t in tree_leaves(blocks)]
+    out = []
+    for i in range(n):
+        it = iter([ts[i] for ts in flat])
+        out.append(tree_map(lambda _: next(it), blocks))
+    return out

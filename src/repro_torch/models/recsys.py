@@ -515,11 +515,13 @@ class BERT4RecConfig:
     loss_chunk: int = 0   # 0 = no chunking
 
 
-def _bert4rec_attn_config(cfg: BERT4RecConfig) -> L.AttnConfig:
+def _bert4rec_attn_config(cfg: BERT4RecConfig, scores_f32: bool = True
+                          ) -> L.AttnConfig:
     return L.AttnConfig(d_model=cfg.embed_dim, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_heads,
                         head_dim=cfg.embed_dim // cfg.n_heads,
-                        rope_theta=1e4, q_chunk=1 << 30)
+                        rope_theta=1e4, q_chunk=1 << 30,
+                        scores_f32=scores_f32)
 
 
 def _init_blocks(gen: torch.Generator, attn_cfg: L.AttnConfig, n: int,
@@ -536,8 +538,7 @@ def _init_blocks(gen: torch.Generator, attn_cfg: L.AttnConfig, n: int,
             "ln2": torch.ones((d,), device=device),
         }
 
-    return tree_map(lambda *xs: torch.stack(xs),
-                    *[block_init() for _ in range(n)])
+    return L.stack_blocks(n, block_init)
 
 
 def init_bert4rec(cfg: BERT4RecConfig, seed: int = 0, device="cuda"
@@ -559,9 +560,16 @@ def bert4rec_encode(params: Params, ids: torch.Tensor, mask: torch.Tensor,
                     cfg: BERT4RecConfig) -> torch.Tensor:
     """Bidirectional encoder: (B, S) ids -> (B, S, D), narrowed to the
     encoder section's rows. The positional table is added to every
-    position, so S must equal ``cfg.seq_len``."""
+    position, so S must equal ``cfg.seq_len``. On a mesh the attention
+    scores stay in the compute dtype, as the reference's
+    ``scores_f32=(cfg.mesh is None)``."""
+    return _bert4rec_encode(params, ids, mask, cfg, cfg.mesh is None)
+
+
+def _bert4rec_encode(params: Params, ids: torch.Tensor, mask: torch.Tensor,
+                     cfg: BERT4RecConfig, scores_f32: bool) -> torch.Tensor:
     dt = cfg.compute_dtype
-    attn_cfg = _bert4rec_attn_config(cfg)
+    attn_cfg = _bert4rec_attn_config(cfg, scores_f32)
     h = (_seq_lookup(params["item_table"], ids, cfg, dt)
          + params["pos_table"].to(dt)[None])
     h = _shard_batch_all(h, cfg)
@@ -652,11 +660,13 @@ class DLRMUIHConfig:
     q_chunk: int = 512
 
 
-def _attn_config(cfg: DLRMUIHConfig) -> L.AttnConfig:
+def _attn_config(cfg: DLRMUIHConfig, scores_f32: bool = True
+                 ) -> L.AttnConfig:
     return L.AttnConfig(d_model=cfg.d_seq, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_heads,
                         head_dim=cfg.d_seq // cfg.n_heads,
-                        rope_theta=1e4, q_chunk=cfg.q_chunk)
+                        rope_theta=1e4, q_chunk=cfg.q_chunk,
+                        scores_f32=scores_f32)
 
 
 def init_dlrm_uih(cfg: DLRMUIHConfig, seed: int = 0, device="cuda"
@@ -698,11 +708,11 @@ def _encoder_block(h: torch.Tensor, block: Params, positions: torch.Tensor,
 
 
 def _dlrm_uih_sequence(params: Params, batch: Dict[str, torch.Tensor],
-                       cfg: DLRMUIHConfig, remat: bool):
+                       cfg: DLRMUIHConfig, remat: bool, scores_f32: bool):
     """The UIH sequence encoder (causal): (B, S) history -> (B, S, D), and
     the history's mask, both narrowed to the encoder section's rows."""
     dt = cfg.compute_dtype
-    attn_cfg = _attn_config(cfg)
+    attn_cfg = _attn_config(cfg, scores_f32)
     h = (_seq_lookup(params["item_table"], batch["uih_item_id"], cfg, dt)
          + lookup(params["action_table"], batch["uih_action_type"], dt))
     h = _shard_batch_all(h, cfg)
@@ -758,7 +768,10 @@ def _dlrm_uih_fields(params: Params, batch: Dict[str, torch.Tensor],
 def _dlrm_uih_logits(params: Params, batch: Dict[str, torch.Tensor],
                      cfg: DLRMUIHConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
-    h, mask = _dlrm_uih_sequence(params, batch, cfg, cfg.remat)     # (B, S, D)
+    # on a mesh the scores stay in the compute dtype, as the reference's
+    # scores_f32=(cfg.mesh is None)
+    h, mask = _dlrm_uih_sequence(params, batch, cfg, cfg.remat,
+                                 cfg.mesh is None)                  # (B, S, D)
     # target-aware pooling: attention of the candidate over history (DIN-style)
     tgt = _shard_batch_all(_lookup(params["item_table"],
                                    batch["cand_item_id"], cfg, dt),
@@ -790,7 +803,8 @@ def dlrm_uih_loss(params: Params, batch: Dict[str, torch.Tensor],
 def bert4rec_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
                               cand_ids: torch.Tensor, cfg: BERT4RecConfig
                               ) -> torch.Tensor:
-    h = bert4rec_encode(params, batch["uih_item_id"], batch["uih_mask"], cfg)
+    h = _bert4rec_encode(params, batch["uih_item_id"], batch["uih_mask"],
+                         cfg, scores_f32=True)
     user_repr = h[:, -1]                                       # (1, D)
     cand = _lookup(params["item_table"], cand_ids, cfg, h.dtype)   # (N, D)
     return user_repr @ cand.T                                  # (1, N)
@@ -834,7 +848,8 @@ def dlrm_uih_score_candidates(params: Params, batch: Dict[str, torch.Tensor],
     dt = cfg.compute_dtype
     if batch["uih_item_id"].shape[0] != 1:
         raise ValueError("dlrm_uih_score_candidates scores one user")
-    h = _dlrm_uih_sequence(params, batch, cfg, remat=False)[0][0]   # (S, D)
+    h = _dlrm_uih_sequence(params, batch, cfg, remat=False,
+                           scores_f32=True)[0][0]                   # (S, D)
     n = cand_ids.shape[0]
     tgt = _lookup(params["item_table"], cand_ids, cfg, dt)          # (N, D)
     att = tgt.float() @ h.float().T                                  # (N, S)

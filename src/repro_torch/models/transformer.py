@@ -1,0 +1,302 @@
+"""Decoder-only transformer LM (GQA / MLA attention, dense / MoE FFN).
+
+Port of ``repro.models.transformer``. Layer parameters are stacked along a
+leading layer axis, as the reference's ``jax.vmap`` lays them out (and as
+``repro_torch.interop`` hands them over); the blocks run in a Python loop
+over per-layer views (``layers.unstack``), each under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set and gradients are on.
+``scan_layers`` and ``unroll_scans`` are the reference's fields, kept so
+the configs are equal field for field; an eager loop has no scan to
+unroll. Cross-entropy is computed in sequence chunks so (B, S, vocab)
+logits are never fully materialized.
+
+Serving. ``prefill`` returns the last position's logits and a cache of the
+prompt's length; ``decode_step`` writes each new token's entry into the
+cache IN PLACE (the returned cache is the caller's, updated: equal to the
+reference's functional result) and attends against the whole cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
+from repro_torch.tree import tree_leaves, to_parameter_dict
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    attention: str = "gqa"           # "gqa" | "mla"
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    moe: Optional[MoEConfig] = None  # None = dense FFN
+    # MLA geometry (attention == "mla")
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # execution
+    compute_dtype: torch.dtype = torch.bfloat16
+    q_chunk: int = 512
+    loss_chunk: int = 512
+    remat: bool = True
+    scan_layers: bool = True
+    unroll_scans: bool = False
+
+    @property
+    def attn_cfg(self) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            qk_norm=self.qk_norm, rope_theta=self.rope_theta,
+            q_chunk=self.q_chunk,
+        )
+
+    @property
+    def mla_cfg(self) -> L.MLAConfig:
+        return L.MLAConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            kv_lora_rank=self.kv_lora_rank, qk_nope_dim=self.qk_nope_dim,
+            qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim,
+            rope_theta=self.rope_theta, q_chunk=self.q_chunk,
+        )
+
+    def param_count(self) -> int:
+        """Parameters, counted from shapes on the ``meta`` device (nothing
+        is allocated)."""
+        return sum(t.numel() for t in tree_leaves(init(self, device="meta")))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k + shared experts count)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        e, k = self.moe.n_experts, self.moe.top_k
+        expert_p = self.n_layers * (
+            self.moe.n_experts * (3 * self.d_model * self.moe.d_ff)
+        )
+        active_expert_p = expert_p * k // e
+        return total - expert_p + active_expert_p
+
+
+def _init_block(gen: torch.Generator, cfg: TransformerConfig, device,
+                dtype: torch.dtype) -> Params:
+    if cfg.attention == "mla":
+        attn = L.init_mla(gen, cfg.mla_cfg, device, dtype)
+    else:
+        attn = L.init_gqa(gen, cfg.attn_cfg, device, dtype)
+    if cfg.moe is not None:
+        ffn = init_moe(gen, cfg.d_model, cfg.moe, device, dtype)
+    else:
+        ffn = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, device, dtype)
+    return {
+        "attn": attn,
+        "ffn": ffn,
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+
+
+def init(cfg: TransformerConfig, seed: int = 0, device="cuda",
+         dtype: torch.dtype = torch.float32):
+    """Random parameters from ``seed`` (a ``torch.Generator`` on
+    ``device``) in the reference's tree layout, blocks stacked on axis 0.
+    float32 for training; serving passes ``dtype=torch.bfloat16``, and each
+    leaf is then drawn in float32 a block of rows at a time and cast
+    (``layers._init``), so no float32 copy of the model ever exists."""
+    gen = L.generator(device, seed)
+    return to_parameter_dict({
+        "embed": L._init(gen, (cfg.vocab, cfg.d_model), 0.02, device, dtype),
+        "blocks": L.stack_blocks(
+            cfg.n_layers, lambda: _init_block(gen, cfg, device, dtype)),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "unembed": L._init(gen, (cfg.vocab, cfg.d_model), 0.02, device,
+                           dtype),
+    })
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _ffn(cfg: TransformerConfig, block: Params, hn: torch.Tensor, mesh,
+         data_axes) -> torch.Tensor:
+    if cfg.moe is not None:
+        return moe_ffn(block["ffn"], hn, cfg.moe, mesh=mesh,
+                       data_axes=data_axes)
+    return L.swiglu(block["ffn"], hn)
+
+
+def _block_fwd(cfg: TransformerConfig, mesh, data_axes, h: torch.Tensor,
+               block: Params, positions: torch.Tensor) -> torch.Tensor:
+    hn = L.rms_norm(h, block["ln1"])
+    if cfg.attention == "mla":
+        attn_out = L.mla_attention_train(block["attn"], hn, positions,
+                                         cfg.mla_cfg)
+    else:
+        attn_out = L.gqa_attention(block["attn"], hn, positions,
+                                   cfg.attn_cfg)
+    h = h + attn_out
+    return h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh, data_axes)
+
+
+def _embed(params: Params, tokens: torch.Tensor, dt: torch.dtype
+           ) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(dt)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def hidden_states(params: Params, tokens: torch.Tensor,
+                  cfg: TransformerConfig, mesh=None, data_axes=("data",)
+                  ) -> torch.Tensor:
+    b, s = tokens.shape
+    h = _embed(params, tokens, cfg.compute_dtype)
+    positions = _positions(b, s, h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for block in L.unstack(params["blocks"], cfg.n_layers):
+        if remat:
+            h = checkpoint(_block_fwd, cfg, mesh, data_axes, h, block,
+                           positions, use_reentrant=False)
+        else:
+            h = _block_fwd(cfg, mesh, data_axes, h, block, positions)
+    return L.rms_norm(h, params["final_norm"])
+
+
+def _xent_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def _chunk_loss(h: torch.Tensor, unemb: torch.Tensor, targets: torch.Tensor
+                ) -> torch.Tensor:
+    return _xent_sum(h @ unemb.T, targets)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: TransformerConfig, mesh=None, data_axes=("data",)
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy; the vocab projection in sequence
+    chunks of ``loss_chunk`` (each recomputed in the backward under
+    ``remat``, so one chunk's logits live at a time)."""
+    h = hidden_states(params, tokens, cfg, mesh, data_axes)   # (B, S, D)
+    b, s, _ = h.shape
+    unemb = params["unembed"].to(cfg.compute_dtype)
+    lc = min(cfg.loss_chunk, s)
+    if s % lc:                                            # ragged: no chunking
+        return _xent_sum(h @ unemb.T, targets) / targets.numel()
+    remat = cfg.remat and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, lc):
+        args = (h[:, lo:lo + lc], unemb, targets[:, lo:lo + lc])
+        total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
+                         if remat else _chunk_loss(*args))
+    return total / (b * s)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
+    dt = dtype or cfg.compute_dtype
+    nl = cfg.n_layers
+
+    def zeros(*shape):
+        return torch.zeros((nl, batch, max_len, *shape), dtype=dt,
+                           device=device)
+
+    if cfg.attention == "mla":
+        return {"c_kv": zeros(cfg.kv_lora_rank), "k_pe": zeros(cfg.qk_rope_dim)}
+    return {"k": zeros(cfg.n_kv_heads, cfg.head_dim),
+            "v": zeros(cfg.n_kv_heads, cfg.head_dim)}
+
+
+def _logits(params: Params, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    h = L.rms_norm(h, params["final_norm"])
+    return h @ params["unembed"].to(dt).T
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None, data_axes=("data",)
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Process a full prompt; return last-position logits (B, vocab) and a
+    populated cache of the prompt's length, stacked (L, B, S, ...), each
+    layer's entries written into it as the layer runs."""
+    b, s = tokens.shape
+    dt = cfg.compute_dtype
+    h = _embed(params, tokens, dt)
+    positions = _positions(b, s, h.device)
+    cache = init_kv_cache(cfg, b, s, device=h.device)
+    for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+        hn = L.rms_norm(h, block["ln1"])
+        if cfg.attention == "mla":
+            c_kv, k_pe = L.mla_new_cache_entries(block["attn"], hn,
+                                                 positions, cfg.mla_cfg)
+            attn_out = L.mla_attention_train(block["attn"], hn, positions,
+                                             cfg.mla_cfg)
+            cache["c_kv"][i], cache["k_pe"][i] = c_kv, k_pe
+        else:
+            q, k, v = L._qkv(block["attn"], hn, positions, cfg.attn_cfg)
+            out = L._attend_chunked(q, k, v, positions, positions, None,
+                                    True, cfg.q_chunk)
+            attn_out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ \
+                block["attn"]["wo"].to(dt)
+            cache["k"][i], cache["v"][i] = k, v
+        h = h + attn_out
+        h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
+                     data_axes)
+    return _logits(params, h[:, -1, :], dt), cache
+
+
+def decode_step(params: Params, cache: Dict[str, torch.Tensor],
+                next_token: torch.Tensor,   # (B,) int
+                position: torch.Tensor,     # (B,) current position to write
+                cfg: TransformerConfig,
+                mesh=None, data_axes=("data",)
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token of autoregressive decode against a (large) KV cache: each
+    layer writes the token's entry at ``position`` (in place, the start
+    clamped into the cache) and attends to every entry at or before it.
+    Returns (logits (B, vocab), ``cache``)."""
+    dt = cfg.compute_dtype
+    h = _embed(params, next_token, dt)[:, None, :]           # (B, 1, D)
+    pos = position[:, None]
+    for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+        hn = L.rms_norm(h, block["ln1"])
+        if cfg.attention == "mla":
+            c_new, pe_new = L.mla_new_cache_entries(block["attn"], hn, pos,
+                                                    cfg.mla_cfg)
+            c_kv = L._write_at(cache["c_kv"][i], c_new, position)
+            k_pe = L._write_at(cache["k_pe"][i], pe_new, position)
+            kv_mask = L._decode_mask(position, c_kv.shape[1])
+            attn_out = L.mla_attention_decode(block["attn"], hn, pos, c_kv,
+                                              k_pe, kv_mask, cfg.mla_cfg)
+        else:
+            attn_out, _, _ = L.gqa_decode(block["attn"], hn, pos,
+                                          cache["k"][i], cache["v"][i],
+                                          cfg.attn_cfg)
+        h = h + attn_out
+        h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
+                     data_axes)
+    return _logits(params, h[:, 0, :], dt), cache
+

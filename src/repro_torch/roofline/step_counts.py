@@ -22,9 +22,13 @@ and every aten op it dispatches is counted.
     the program: every input read once and every output written once. An
     input that is only gathered from (a table) is charged the rows its
     gathers return, up to its size, and one that is only scattered into
-    the rows written; outputs are the tensors the step returns. Unlike
-    the count above it does not move when the program fuses, so it is the
-    memory term of a cell's floor (``roofline.analysis.compulsory_floor``).
+    the rows written; outputs are the tensors the step returns, each
+    written once, except an input the step updates in place and returns
+    (a decode step's KV cache, a train step's parameters), which is
+    charged what the step wrote into it: the rows of its scatters, or the
+    whole tensor where any other op writes it. Unlike the count above it
+    does not move when the program fuses, so it is the memory term of a
+    cell's floor (``roofline.analysis.compulsory_floor``).
   * Collectives: every ``torch.ops._c10d_functional`` collective, with the
     reference's ring-algorithm cost model per rank (``n`` = group size,
     ``bytes`` = this rank's result):
@@ -50,6 +54,8 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.tree import tree_leaves
 
 _GATHERS = {"index", "embedding", "index_select", "gather"}
 _SCATTERS = {"index_put_", "_index_put_impl_", "index_add_", "scatter_",
@@ -115,6 +121,31 @@ class _Counter(TorchDispatchMode):
         self.sizes = {_storage(t): t.untyped_storage().nbytes()
                       for t in inputs}
         self.read: Dict[StorageWeakRef, int] = {}
+        self.wrote: Dict[StorageWeakRef, int] = {}
+
+    @staticmethod
+    def _scattered(packet: str, args) -> int:
+        """The bytes of the values an in-place scatter writes: (self,
+        indices, values) or (self, dim, index, source)."""
+        vals = (args[2] if packet in ("index_put_", "_index_put_impl_")
+                else args[3:4])
+        return _tensor_bytes(vals)
+
+    def _mark_writes(self, func, packet: str, args, kwargs) -> None:
+        """Add what this op writes into the step's inputs to ``wrote``."""
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            t = args[i] if i < len(args) else kwargs.get(a.name)
+            if not isinstance(t, torch.Tensor):
+                continue
+            ref = _storage(t)
+            size = self.sizes.get(ref)
+            if size is None:
+                continue
+            add = self._scattered(packet, args) if packet in _SCATTERS \
+                else size
+            self.wrote[ref] = min(size, self.wrote.get(ref, 0) + add)
 
     def _charge(self, packet: str, args, kwargs, out) -> None:
         """Add what this op reads of the step's inputs to ``read``."""
@@ -130,11 +161,7 @@ class _Counter(TorchDispatchMode):
             if t is first and packet in _GATHERS:
                 add = _tensor_bytes(out)
             elif t is first and packet in _SCATTERS:
-                # the values: (self, indices, values) or (self, dim, index,
-                # source)
-                vals = (args[2] if packet in ("index_put_", "_index_put_impl_")
-                        else args[3:4])
-                add = _tensor_bytes(vals)
+                add = self._scattered(packet, args)
             else:
                 add = size
             self.read[ref] = min(size, self.read.get(ref, 0) + add)
@@ -160,6 +187,8 @@ class _Counter(TorchDispatchMode):
             packet = func.overloadpacket.__name__
             if self.sizes:
                 self._charge(packet, args, kwargs, out)
+                if func._schema.is_mutable:
+                    self._mark_writes(func, packet, args, kwargs)
             if packet in _GATHERS:
                 self.bytes += 2 * _tensor_bytes(out) + _tensor_bytes(
                     (args[1:], kwargs))
@@ -186,16 +215,19 @@ class StepCounts:
 
 def count_step(fn, *args) -> StepCounts:
     """Run ``fn(*args)`` once under the counters; returns its counts (the
-    caller enters ``FakeTensorMode`` around it to run on fake tensors)."""
-    inputs, _ = tree_flatten(args)
+    caller enters ``FakeTensorMode`` around it to run on fake tensors).
+    Arguments and results are walked as parameter trees
+    (``repro_torch.tree``: ``nn.ParameterDict`` nodes included)."""
+    inputs = tree_leaves(args)
     flops = FlopCounterMode(display=False)
     counter = _Counter([t for t in inputs if isinstance(t, torch.Tensor)])
     with flops, counter:
         out = fn(*args)
-    outs, _ = tree_flatten(out)
-    written = sum(_tensor_bytes(t) for t in
-                  {id(t): t for t in outs
-                   if isinstance(t, torch.Tensor)}.values())
+    written = 0
+    for ref, t in {_storage(t): t for t in tree_leaves(out)
+                   if isinstance(t, torch.Tensor)}.items():
+        written += (counter.wrote.get(ref, 0) if ref in counter.sizes
+                    else _tensor_bytes(t))
     return StepCounts(float(flops.get_total_flops()), float(counter.bytes),
                       CollectiveStats(counter.counts, counter.result_bytes,
                                       counter.link),

@@ -846,11 +846,18 @@ def test_smoke_tenant_on_card_equals_cpu(cuda, name, monkeypatch):
 
 @pytest.mark.parametrize("arch,shape", [("dlrm-uih", "train_batch"),
                                         ("dcn-v2", "serve_p99"),
-                                        ("dien", "retrieval_cand")])
+                                        ("dien", "retrieval_cand"),
+                                        ("qwen3-4b", "train_4k"),
+                                        ("deepseek-v2-lite-16b",
+                                         "prefill_32k"),
+                                        ("qwen3-moe-30b-a3b", "decode_32k"),
+                                        ("meshgraphnet", "full_graph_sm")])
 def test_smoke_cell_on_card_equals_cpu(cuda, arch, shape, monkeypatch):
-    """One SMOKE cell of each kind (``launch.steps``) run on the card and on
-    the CPU from the same sampled arguments: float32 with TF32 off, rtol
-    1e-4, atol 1e-5 (the CPU parity tests' tolerance)."""
+    """One SMOKE cell of each kind (``launch.steps``; recsys train, serve
+    and retrieval, LM train, prefill and decode, GNN train) run on the card
+    and on the CPU from the same sampled arguments: float32 with TF32 off,
+    rtol 1e-4, atol 1e-5 (the CPU parity tests' tolerance; the GNN's
+    scatter adds with atomics on the card, in another order)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_arch
@@ -866,7 +873,7 @@ def test_smoke_cell_on_card_equals_cpu(cuda, arch, shape, monkeypatch):
         cell = build_cell(get_arch(arch), shape, mesh, use_full=False)
     finally:
         dist.destroy_process_group()
-    cpu = sample_args(cell, "recsys", seed=0, device="cpu")
+    cpu = sample_args(cell, get_arch(arch).family, seed=0, device="cpu")
     card = [tree_map(lambda t: t.detach().clone().to(cuda), a)
             for a in cpu]
     if cell.kind == "train":
@@ -877,8 +884,8 @@ def test_smoke_cell_on_card_equals_cpu(cuda, arch, shape, monkeypatch):
         assert isinstance(got[1], AdamWState) and int(got[1].step) == 1
         pairs = (list(zip(tree_leaves(got[0]), tree_leaves(want[0])))
                  + [(got[2][k], want[2][k]) for k in ("loss", "grad_norm")])
-    else:
-        pairs = [(got, want)]
+    else:           # a tensor, or (logits, cache)
+        pairs = list(zip(tree_leaves(got), tree_leaves(want)))
     for g, w in pairs:
         g, w = torch.as_tensor(g), torch.as_tensor(w)
         assert g.device.type == "cuda" and torch.isfinite(g.float()).all()

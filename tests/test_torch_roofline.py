@@ -10,8 +10,10 @@
   HLO lines).
 * A step's compulsory bytes read each input once (a table only gathered
   from, the rows gathered; one only scattered into, the rows written) and
-  write each output once, whatever ops the step reads them with, and the
-  floor is those bytes and the model FLOPs over the H100 constants.
+  write each output once (an input updated in place and returned, what the
+  step wrote into it), whatever ops the step reads them with, and the
+  floor is those bytes and the model FLOPs over the H100 constants; so for
+  a SMOKE LM decode cell and a SMOKE GNN train cell.
 * ``python -m repro_torch.launch.dryrun`` traces one FULL cell to ``ok`` in
   a subprocess and writes only the results file it is given.
 """
@@ -116,7 +118,8 @@ F32 = 4
 
 
 @pytest.mark.parametrize("case", ["matmul", "two-gathers", "view",
-                                  "dense-and-gather", "scatter", "fake"])
+                                  "dense-and-gather", "scatter",
+                                  "in-place-whole", "fake"])
 def test_compulsory_bytes_read_inputs_once_and_write_outputs_once(case):
     table, ids = torch.ones(1000, 16), torch.tensor([3, 7, 7])
     rows = 3 * 16 * F32
@@ -134,10 +137,13 @@ def test_compulsory_bytes_read_inputs_once_and_write_outputs_once(case):
     elif case == "dense-and-gather":   # read whole once: capped at its size
         got = count_step(lambda t, i: t[i].sum() + t.sum(), table, ids)
         want = 1000 * 16 * F32 + 3 * 8 + F32
-    elif case == "scatter":      # the rows written, the whole output
+    elif case == "scatter":      # in place: the rows read and written
         got = count_step(lambda t, i, v: t.index_add_(0, i, v),
                          torch.zeros(1000, 16), ids, torch.ones(3, 16))
-        want = rows + 3 * 8 + rows + 1000 * 16 * F32
+        want = rows + 3 * 8 + rows + rows
+    elif case == "in-place-whole":   # updated whole in place: written whole
+        got = count_step(lambda t: t.mul_(2), table.clone())
+        want = 2 * 1000 * 16 * F32
     else:                        # fake tensors count as real ones
         from torch._subclasses.fake_tensor import FakeTensorMode
         with FakeTensorMode():
@@ -188,3 +194,55 @@ def test_dryrun_cli_traces_a_full_cell_and_writes_only_its_results(tmp_path):
     assert 0 < floor["compulsory_bytes_per_chip"] <= (
         entry["cost"]["bytes accessed"])
     assert 0 < floor["t_bound_s"] <= entry["roofline"]["t_memory_s"]
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-4b", "decode_32k"),
+                                        ("meshgraphnet", "molecule")])
+def test_zoo_cell_floor_reads_inputs_once_and_writes_outputs_once(arch,
+                                                                  shape):
+    """A SMOKE LM decode cell's compulsory bytes: every input once (of the
+    embedding table, the rows its tokens gather), the logits written and,
+    in the KV cache it updates in place, one entry a row and layer. A SMOKE
+    GNN train cell's: every input once (the
+    parameters, both moments, the step and the graph) and its outputs
+    written once (the parameters and moments updated in place, the step,
+    the loss and the gradient norm). The floor is those bytes and the
+    model FLOPs over the H100 constants."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sampling import sample_args
+    from repro_torch.launch.steps import build_cell
+
+    spec = get_arch(arch)
+    mesh = make_test_mesh(1, "cpu")
+    try:
+        cell = build_cell(spec, shape, mesh, use_full=False)
+        args = sample_args(cell, spec.family, seed=0, device="cpu")
+        inputs = _nbytes(args)
+        counts = count_step(cell.step_fn, *args)
+    finally:
+        dist.destroy_process_group()
+    cfg = cell.meta["cfg"]
+    if cell.kind == "decode":
+        params, cache, batch = args
+        embed = params["embed"]
+        b = batch["token"].shape[0]
+        rows = b * embed.shape[1] * embed.element_size()
+        logits = b * cfg.vocab * cfg.compute_dtype.itemsize
+        entries = sum(c[:, :, 0].numel() * c.element_size()
+                      for c in cache.values())
+        want = inputs - _nbytes(embed) + rows + logits + entries
+    else:
+        params, opt_state, _ = args
+        want = inputs + _nbytes((params, opt_state.m, opt_state.v)) + 3 * F32
+    assert counts.compulsory_bytes == want
+    floor = TA.compulsory_floor(counts.compulsory_bytes, cell.model_flops, 1)
+    assert floor["t_bound_s"] == max(want / 3.35e12,
+                                     cell.model_flops / 989.4e12)
+    assert counts.bytes >= want          # the eager program moves more

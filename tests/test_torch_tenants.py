@@ -424,3 +424,112 @@ def test_feed_prep_loss_matches_reference_host_batch(name):
     for k in ref:
         np.testing.assert_array_equal(prepped[k].numpy(), ref[k], err_msg=k)
     _close(loss, j_loss)
+
+
+# ---------------------------------------------------------------------------
+# attention scores on a mesh: the compute dtype, as the reference
+# ---------------------------------------------------------------------------
+#
+# The reference's DLRM-UIH and BERT4Rec encoders pass ``scores_f32=(cfg.mesh
+# is None)``: on a mesh the score einsum, scale, mask and softmax run in the
+# compute dtype. Held at rtol = atol = 2**-6 for one bf16 attention call (a
+# bf16 unit in the last place at |x| < 4 is at most 2**-6): the port's
+# compute-dtype path lies within it, its float32 path does not. The two
+# encoders' SMOKE forward in bf16 on a one-device mesh is held at rtol =
+# atol = 2**-5: two bf16 layers, where each side rounds its other ops
+# (norms, rope, MLPs) in its own order.
+
+from repro.models import layers as JL                 # noqa: E402
+from repro_torch.models import layers as TL           # noqa: E402
+
+BF16_ATTN_TOL = dict(rtol=2**-6, atol=2**-6)
+BF16_FORWARD_TOL = dict(rtol=2**-5, atol=2**-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_attention_scores_in_the_compute_dtype_match_the_reference(causal,
+                                                                   seed):
+    rng = np.random.default_rng(seed)
+    b, s, h, hk, dh = 4, 64, 4, 2, 16
+    q = rng.standard_normal((b, s, h, dh)).astype(np.float32) * 2
+    k = rng.standard_normal((b, s, hk, dh)).astype(np.float32) * 2
+    v = rng.standard_normal((b, s, hk, dh)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s)[None], (b, s)).astype(np.int32)
+    mask = np.arange(s)[None, :] >= np.array([0, 5, 20, s - 1])[:, None]
+    want = np.asarray(jax.jit(lambda q, k, v: JL._attend_chunked(
+        q, k, v, jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(mask),
+        causal, 16, scores_f32=False))(
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    ).astype(jnp.float32))
+    args = (*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+            torch.from_numpy(pos), torch.from_numpy(pos),
+            torch.from_numpy(mask), causal, 16)
+    got = TL._attend_chunked(*args, scores_f32=False)
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), want, **BF16_ATTN_TOL)
+    old = TL._attend_chunked(*args, scores_f32=True).float().numpy()
+    assert not np.allclose(old, want, **BF16_ATTN_TOL)
+
+
+@pytest.mark.parametrize("name", ["dlrm-uih", "bert4rec"])
+def test_encoders_on_a_mesh_score_in_the_compute_dtype(name, monkeypatch):
+    """SMOKE DLRM-UIH and BERT4Rec in bf16 on a one-device mesh: the
+    port's forward equals the reference's serving cell on the same
+    parameters and batch, and the encoders' attention ran in the compute
+    dtype (in float32 without a mesh, and in the candidate scorers)."""
+    import torch.distributed as dist
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.configs import get_arch as j_get_arch
+    from repro.launch.mesh import set_mesh
+    from repro.launch.sampling import sample_args as j_sample_args
+    from repro.launch.steps import build_cell as j_build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import tree_map
+
+    j_mod, t_mod, _, to_port = TENANTS[name]
+    # the reference's mesh path runs under jit on a mesh whose axes let
+    # its sharding constraints propagate (its test mesh's explicit axes
+    # would need every gather's output sharding spelled out)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"),
+                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    smoke = dataclasses.replace(j_mod.SMOKE, compute_dtype=jnp.bfloat16)
+    cell = j_build_cell(j_get_arch(name), "serve_p99", jmesh, use_full=True,
+                        cfg_override=smoke)
+    assert cell.meta["cfg"].mesh is jmesh
+    args = j_sample_args(cell, "recsys", 0)
+    shardings = jax.tree.map(lambda p: NamedSharding(jmesh, p),
+                             cell.in_shardings,
+                             is_leaf=lambda x: isinstance(x, JP))
+    with set_mesh(jmesh):
+        want = jax.jit(cell.step_fn)(*jax.device_put(args, shardings))
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), args[0])
+    params = tree_map(lambda p: p.detach().to(torch.bfloat16),
+                      to_port(tree, t_mod.SMOKE, "cpu"))
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in args[1].items()}
+    seen = []
+    attend = TL._attend_chunked
+
+    def spy(*a, **kw):
+        seen.append(a[8] if len(a) > 8 else kw.get("scores_f32", True))
+        return attend(*a, **kw)
+
+    monkeypatch.setattr(TL, "_attend_chunked", spy)
+    mesh = make_test_mesh(1, "cpu")
+    try:
+        cfg = dataclasses.replace(t_mod.SMOKE, compute_dtype=torch.bfloat16,
+                                  mesh=mesh)
+        with torch.no_grad():
+            got = FORWARD[name][1](params, batch, cfg)
+            assert seen and not any(seen)
+            seen.clear()
+            FORWARD[name][1](params, batch,
+                             dataclasses.replace(cfg, mesh=None))
+            assert seen and all(seen)
+    finally:
+        dist.destroy_process_group()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    _close(got.float(), np.asarray(want.astype(jnp.float32)),
+           **BF16_FORWARD_TOL)
