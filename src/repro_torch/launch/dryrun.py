@@ -25,9 +25,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh one
 ``--mesh one`` traces the cells on a 1x1 mesh: one card's program, whose
 peak is what ``chip_smoke.py`` reckons before it runs a cell at full size.
-It traces all 44 cells (the 24 LM/GNN zoo cells and the 20 recsys ones);
-the production meshes trace the 40 recsys cells, since the zoo's cells run
-on one rank until its multi-rank slice.
+Every mesh traces all 44 cells (the 24 LM/GNN zoo cells and the 20 recsys
+ones), 88 on the two production meshes: the zoo's cells as their
+rank-local tensor-, vocabulary- and expert-parallel programs.
 Results accumulate in dryrun_results_torch.json at the repository root (one
 entry per cell; idempotent), or in ``--out``; the reference's
 ``dryrun_results.json`` is never touched.
@@ -100,12 +100,9 @@ def trace_cell(cell, mesh) -> dict:
 
 def archs_on(mesh_name: str, archs=None):
     """The archs whose cells the dry run traces on ``mesh_name`` (of
-    ``archs``, default every registered one): every family on ``one``,
-    the recsys family on the production meshes."""
-    archs = list_archs() if archs is None else archs
-    if mesh_name == "one":
-        return list(archs)
-    return [a for a in archs if get_arch(a).family == "recsys"]
+    ``archs``, default every registered one): every family on every
+    mesh."""
+    return list(list_archs() if archs is None else archs)
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_name: str) -> dict:
@@ -192,11 +189,6 @@ def main() -> None:
     done = load_results(args.out)
     failures = []
     for mesh_name in meshes:
-        skipped = [a for a in archs if a not in archs_on(mesh_name, archs)]
-        if skipped:
-            print(f"[note] --mesh {mesh_name}: the recsys cells only; "
-                  f"{', '.join(skipped)} run on one rank until the zoo's "
-                  f"multi-rank slice")
         for arch_id in archs_on(mesh_name, archs):
             spec = get_arch(arch_id)
             shapes = [args.shape] if args.shape else list(spec.shapes)

@@ -94,6 +94,29 @@ def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
         return mesh[axes]._flatten().get_group()
 
 
+def subaxis_group(mesh: DeviceMesh, axis: str, inner: int):
+    """The process group of the ``inner`` consecutive ranks along ``axis``
+    that holds this rank (``axis`` split into ``axis_outer`` x
+    ``axis_inner``; the split mesh is made once, by every rank at the same
+    call, and kept on ``mesh``)."""
+    if inner == axes_size(mesh, (axis,)):
+        return axes_group(mesh, (axis,))
+    cache = mesh.__dict__.setdefault("_subaxis_groups", {})
+    key = (axis, inner)
+    if key not in cache:
+        names = tuple(mesh.mesh_dim_names)
+        i = names.index(axis)
+        with _disable_current_modes():
+            shape = list(mesh.mesh.shape)
+            shape[i:i + 1] = [shape[i] // inner, inner]
+            split = DeviceMesh(
+                mesh.device_type, mesh.mesh.reshape(shape),
+                mesh_dim_names=(*names[:i], f"{axis}_outer",
+                                f"{axis}_inner", *names[i + 1:]))
+            cache[key] = split.get_group(f"{axis}_inner")
+    return cache[key]
+
+
 def axes_rank(mesh: DeviceMesh, axes: Sequence[str]) -> int:
     """This rank's row-major coordinate over ``axes``."""
     r = 0

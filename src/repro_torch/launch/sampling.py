@@ -7,8 +7,9 @@ flatten order, which takes a dict's keys SORTED (``repro_torch.tree`` walks
 the same order), with the same bounds and distributions, so one seed gives
 byte-equal batches in both packages (ids bounded by the config's
 vocabularies, senders and receivers below the node count, decode
-positions zero, masks non-degenerate, floats standard-normal); a KV cache is
-zeros. Parameters come from the port's ``init`` functions with a
+positions zero, masks non-degenerate, floats standard-normal; a GNN's
+edges padded to a multiple of the mesh's ranks are drawn like the others,
+their mask too); a KV cache is zeros. Parameters come from the port's ``init`` functions with a
 ``torch.Generator`` seeded by ``seed`` (torch and jax draw different
 numbers; tests hand the reference's parameters over through
 ``repro_torch.interop`` instead). A serving LM's bf16 weights are drawn
@@ -144,7 +145,10 @@ def local_args(cell: Cell, args: tuple, mesh) -> tuple:
     """This rank's block of each of ``args`` (global tensors, as
     ``sample_args`` makes them) under the cell's input placements, each a
     tensor of its own: the form the rank-local ``cell.step_fn`` takes (its
-    train step updates parameters and moments in place). On a mesh of one
+    train step updates parameters and moments in place). The zoo's blocks
+    are its rows of the vocabulary-parallel tables, its columns or rows of
+    the tensor-parallel weights, its experts, its block of a cache's
+    positions and its block of a graph's padded edges. On a mesh of one
     device every block is the whole tensor, and ``args`` come back as
     they are."""
     if mesh.size() == 1:

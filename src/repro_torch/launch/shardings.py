@@ -1,11 +1,15 @@
 """Parameter / optimizer-state / input placement rules.
 
-Port of ``repro.launch.shardings`` for the recsys family; the LM and GNN
-cells run on one rank so far, where every placement is the whole tensor
-(``replicated``), and their production rules (``lm_param_specs``,
-``gnn_param_specs``) come with the zoo's multi-rank slice. Conventions
-(DESIGN.md §3):
+Port of ``repro.launch.shardings``, rule for rule. Conventions (DESIGN.md
+§3):
 
+  * LM dense weights: Megatron TP on the ``model`` axis (column-parallel
+    q/k/v, gate/up and MLA's up-projections, row-parallel out and down),
+    vocabulary-parallel embedding and unembedding.
+  * MoE expert weights: the expert dim on ``model`` and the per-expert
+    ``2f``/``f`` dim on ``data`` (FSDP, gathered per layer), or, in the
+    ``2d`` decode layout, the contraction dims on ``data`` (resident).
+  * GNN: parameters replicated, edges over every axis, nodes replicated.
   * Optimizer moments: parameter spec + ZeRO sharding of the first divisible
     unsharded dim over the data axes (ZeRO-2).
   * RecSys embedding tables: rows sharded over ``model``, replicated over
@@ -90,6 +94,43 @@ def opt_specs(param_specs, params_shape, mesh) -> Any:
                   param_specs, params_shape, is_leaf=is_spec)
     return AdamWState(step=P(), m=mv, v=tree_map(lambda s: s, mv,
                                                  is_leaf=is_spec))
+
+
+# ---------------------------------------------------------------------------
+# LM params
+# ---------------------------------------------------------------------------
+
+def lm_param_specs(params_shape, mesh, moe_2d: bool = False) -> Any:
+    """Spec tree of the transformer's parameters (blocks stacked on a
+    leading layer dim). ``moe_2d``: the decode layout, expert weights fully
+    sharded over (model x data), so no per-step all-gather."""
+    def rule(name: str, leaf) -> P:
+        nd = len(leaf.shape)
+        if name in ("embed", "unembed"):
+            return P("model", None)                   # vocab-parallel
+        if "blocks" not in name:
+            return P()                                # final_norm
+        if name.endswith(("ln1", "ln2", "q_norm", "k_norm", "kv_norm")):
+            return P(None, None)
+        if name.endswith(("attn/wq", "attn/wk", "attn/wv", "attn/w_uk",
+                          "attn/w_uv", "ffn/w_gate", "ffn/w_up",
+                          "ffn/shared_w_in")):
+            return P(None, None, "model")             # column parallel
+        if name.endswith(("attn/wo", "ffn/w_down", "ffn/shared_w_out")):
+            return P(None, "model", None)             # row parallel
+        if name.endswith(("attn/w_dkv", "attn/w_k_rope", "ffn/router")):
+            return P(None, None, None)
+        if name.endswith(("ffn/w_in", "ffn/w_out")):  # (L, E, d, 2f) / (L, E, f, d)
+            return (P(None, "model", "data", None) if moe_2d
+                    else P(None, "model", None, "data"))
+        return P(*([None] * nd))
+
+    return _map_with_path(rule, params_shape)
+
+
+def gnn_param_specs(params_shape, mesh) -> Any:
+    """Every GNN parameter replicated (tiny); the edges carry the split."""
+    return replicated(params_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -19,13 +19,19 @@ them), and the train step reduces each gradient over the axes its
 parameter is replicated on and updates ZeRO-sharded moments on this rank's
 slice (``_sharded_train_step``).
 
-The LM and GNN cells run on a mesh of one rank: the model functions take
-the mesh (an MoE then runs its rank-local ``shard_map`` bodies as rank 0,
-and the decode cells switch the experts to the reference's ``2d`` layout),
-and every placement is the whole tensor. A larger mesh raises
-``NotImplementedError``: rank-local tensor parallelism, the
-vocabulary-parallel loss and expert parallelism across ranks come with the
-zoo's multi-rank slice.
+The LM and GNN cells carry the reference's placements
+(``shardings.lm_param_specs``, ``gnn_param_specs``) and pass the mesh to
+the model functions, which run their rank-local programs on a mesh of more
+than one rank (``models.parallel``): Megatron tensor parallelism and a
+vocabulary-parallel embedding and loss over ``model``, the MoE's experts
+over ``model`` (FSDP over ``data``, or the ``2d`` layout the decode cells
+switch to), a decode cache blocked by position, a GNN's edges over every
+axis. Their train cells use the same ``_sharded_train_step``: each rank's
+loss is its share of the global loss and every collective's backward is
+its adjoint, so each gradient is a partial sum that the step completes
+over the axes its parameter is replicated on. On a one-rank mesh the
+model functions take their single-device paths (an MoE runs its
+``shard_map`` bodies as rank 0).
 """
 from __future__ import annotations
 
@@ -101,15 +107,6 @@ def _batch_axes(mesh, b: int):
     return (da if _div(b, axes_size(mesh, da)) else None), da
 
 
-def _one_rank(mesh, family: str) -> None:
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            f"{family} cells on a {mesh.size()}-rank mesh: rank-local tensor "
-            f"parallelism, the vocabulary-parallel loss and expert "
-            f"parallelism across ranks come with the zoo's multi-rank slice; "
-            f"this port runs them on one rank")
-
-
 def _adamw_shape(pshape) -> AdamWState:
     return AdamWState(step=S((), torch.int32),
                       m=tree_map(lambda l: S(l.shape, torch.float32), pshape),
@@ -136,25 +133,26 @@ def _no_grad(fn: Callable) -> Callable:
 
 def build_lm_cell(spec: ArchSpec, shape_name: str, mesh,
                   use_full: bool = True, cfg_override=None) -> Cell:
-    _one_rank(mesh, "LM")
     cfg = cfg_override or (spec.full if use_full else spec.smoke)
     shp = spec.shapes[shape_name]
     b, sl = shp["batch"], shp["seq_len"]
     if not use_full:  # smoke: shrink shapes
         b, sl = max(2, b // 128), min(sl, 64)
-    da = data_axes_of(mesh)
     b_axes, _ = _batch_axes(mesh, b)
+    # the axes the batch is split on (none where it does not split): the
+    # reference's moe_data_axes, and its data axes for every train and
+    # prefill cell (their batches split)
+    da = b_axes or ()
     kind = shp["kind"]
-    moe_data_axes = da
     if cfg.moe is not None and kind == "decode":
-        moe_data_axes = b_axes if b_axes is not None else ()
         # decode: fully-resident 2D expert layout (no per-step all-gather)
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, ep_mode="2d"))
     pshape = eval_shape(lambda: T.init(cfg, seed=0, device="cpu"))
     if kind != "train":
         pshape = _bf16(pshape)
-    pspec = SH.replicated(pshape)
+    pspec = SH.lm_param_specs(pshape, mesh, moe_2d=(
+        cfg.moe is not None and cfg.moe.ep_mode == "2d"))
     n_params = cfg.active_param_count()
 
     if kind == "train":
@@ -165,12 +163,13 @@ def build_lm_cell(spec: ArchSpec, shape_name: str, mesh,
         batch_spec = {"tokens": S((b, sl), torch.int32),
                       "targets": S((b, sl), torch.int32)}
         batch_sh = {"tokens": P(b_axes, None), "targets": P(b_axes, None)}
+        ospec = SH.opt_specs(pspec, pshape, mesh)
         return Cell(
             spec.arch_id, shape_name, kind,
-            make_train_step(loss, AdamWConfig()),
+            _train_step(loss, mesh, pspec, ospec),
             (pshape, _adamw_shape(pshape), batch_spec),
-            (pspec, SH.opt_specs(pspec, pshape, mesh), batch_sh),
-            (pspec, SH.opt_specs(pspec, pshape, mesh), P()),
+            (pspec, ospec, batch_sh),
+            (pspec, ospec, P()),
             model_flops=6.0 * n_params * b * sl,
             meta={"tokens": b * sl, "cfg": cfg},
         )
@@ -194,7 +193,7 @@ def build_lm_cell(spec: ArchSpec, shape_name: str, mesh,
 
     def decode(p, cache, batch):
         return T.decode_step(p, cache, batch["token"], batch["position"], cfg,
-                             mesh=mesh, data_axes=moe_data_axes)
+                             mesh=mesh, data_axes=da)
 
     batch_spec = {"token": S((b,), torch.int32),
                   "position": S((b,), torch.int32)}
@@ -232,13 +231,20 @@ def _kv_cache_spec(cfg, mesh, b: int, sl: int):
     return shape, sh
 
 
+def _train_step(loss, mesh, pspec, ospec):
+    """A zoo cell's AdamW step: the rank-local ``_sharded_train_step`` on a
+    mesh of more than one rank, the plain one on one rank."""
+    if mesh.size() == 1:
+        return make_train_step(loss, AdamWConfig())
+    return _sharded_train_step(loss, AdamWConfig(), mesh, pspec, ospec)
+
+
 # ---------------------------------------------------------------------------
 # GNN cells
 # ---------------------------------------------------------------------------
 
 def build_gnn_cell(spec: ArchSpec, shape_name: str, mesh,
                    use_full: bool = True, cfg_override=None) -> Cell:
-    _one_rank(mesh, "GNN")
     base_cfg = cfg_override or (spec.full if use_full else spec.smoke)
     shp = spec.shapes[shape_name]
     n, e, d_feat = shp["n_nodes"], shp["n_edges"], shp["d_feat"]
@@ -250,12 +256,13 @@ def build_gnn_cell(spec: ArchSpec, shape_name: str, mesh,
     e_pad = int(math.ceil(e / ndev) * ndev)
     axes = tuple(all_axes_of(mesh))
     pshape = eval_shape(lambda: G.init(cfg, seed=0, device="cpu"))
-    pspec = SH.replicated(pshape)      # the reference's gnn_param_specs
+    pspec = SH.gnn_param_specs(pshape, mesh)
 
     def loss(p, batch):
         return G.loss_fn(p, batch["node_feats"], batch["edge_feats"],
                          batch["senders"], batch["receivers"],
-                         batch["targets"], cfg, edge_mask=batch["edge_mask"])
+                         batch["targets"], cfg, edge_mask=batch["edge_mask"],
+                         mesh=mesh)
 
     f32 = torch.float32
     batch_spec = {
@@ -281,7 +288,7 @@ def build_gnn_cell(spec: ArchSpec, shape_name: str, mesh,
     ospec = SH.opt_specs(pspec, pshape, mesh)
     return Cell(
         spec.arch_id, shape_name, "train",
-        make_train_step(loss, AdamWConfig()),
+        _train_step(loss, mesh, pspec, ospec),
         (pshape, _adamw_shape(pshape), batch_spec),
         (pspec, ospec, batch_sh),
         (pspec, ospec, P()),

@@ -43,7 +43,7 @@ def lookup(table: torch.Tensor, ids: torch.Tensor,
     return rows if dtype is None else rows.to(dtype)
 
 
-def _row_partial(table: torch.Tensor, ids: torch.Tensor, mask, rank: int,
+def row_partial(table: torch.Tensor, ids: torch.Tensor, mask, rank: int,
                  dt: torch.dtype) -> torch.Tensor:
     """This rank's part of ``table[ids]``: rows ``[rank*V_loc,
     (rank+1)*V_loc)`` of the global table are ``table``'s; other ids (and
@@ -70,7 +70,7 @@ def _rowsharded(table, ids, mask, reduce_bag: bool, mesh, data_axes,
         ids = funcol.all_gather_tensor(ids.contiguous(), 0, group)
         if mask is not None:
             mask = funcol.all_gather_tensor(mask.contiguous(), 0, group)
-    part = _row_partial(table, ids, mask, rank, dt)
+    part = row_partial(table, ids, mask, rank, dt)
     if reduce_bag:
         part = part.sum(dim=-2)
     if scatter:

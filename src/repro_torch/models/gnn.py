@@ -18,6 +18,15 @@ over the 15 FULL blocks it overflows, and the masked product turns the
 ``inf`` into NaN gradients for every parameter (a fault of the reference,
 kept there). Where the reference's gradients are finite, the two agree.
 
+On a mesh of more than one rank (``parallel.tp``) ``forward`` and
+``loss_fn`` are the rank-local program of the reference's vertex-cut
+placement: the edge arrays are this rank's block of the padded edges, the
+nodes and parameters are whole on every rank. Each rank encodes and
+updates its own edges, adds their messages into a zero (N, h) block, and
+the blocks are summed over every axis before the (replicated) node MLP;
+the loss is this rank's share, ``1 / ranks``, of the global loss
+(``models.parallel``'s convention).
+
 Includes the reference's fanout neighbor sampler (numpy, host side) for
 the ``minibatch_lg`` regime: the same ``np.random.Generator`` state gives
 the same arrays byte for byte.
@@ -32,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as PL
 from repro_torch.models.embedding import mlp_apply, mlp_init
 from repro_torch.tree import to_parameter_dict, tree_leaves
 
@@ -96,7 +106,8 @@ def _ln(x: torch.Tensor, w: torch.Tensor, eps=1e-6) -> torch.Tensor:
     return ((x32 - mu) * torch.rsqrt(var + eps) * w.float()).to(dt)
 
 
-def _block(cfg: MeshGraphNetConfig, senders, receivers, edge_mask, h, e, bp):
+def _block(cfg: MeshGraphNetConfig, senders, receivers, edge_mask, h, e, bp,
+           mesh=None):
     m = cfg.mlp_layers
     msg_in = torch.cat([e, h[senders], h[receivers]], dim=-1)
     e_new = mlp_apply(bp["edge_mlp"], msg_in, m)
@@ -107,6 +118,8 @@ def _block(cfg: MeshGraphNetConfig, senders, receivers, edge_mask, h, e, bp):
         e = e * edge_mask[:, None].to(e.dtype)
     agg = torch.zeros((h.shape[0], e.shape[1]), dtype=e.dtype,
                       device=e.device).index_add(0, receivers, e)
+    if PL.tp(mesh):
+        agg = PL.sum_over(agg, mesh, mesh.mesh_dim_names)
     h_new = mlp_apply(bp["node_mlp"], torch.cat([h, agg], dim=-1), m)
     return _ln(h + h_new, bp["node_ln"]), e
 
@@ -119,6 +132,7 @@ def forward(
     receivers: torch.Tensor,     # (E,) int
     cfg: MeshGraphNetConfig,
     edge_mask: Optional[torch.Tensor] = None,   # (E,) for padded edges
+    mesh=None,
 ) -> torch.Tensor:
     dt = cfg.compute_dtype
     m = cfg.mlp_layers
@@ -129,23 +143,25 @@ def forward(
         e = e * edge_mask[:, None].to(dt)
     remat = cfg.remat and torch.is_grad_enabled()
     for bp in L.unstack(params["blocks"], cfg.n_layers):
-        args = (cfg, senders, receivers, edge_mask, h, e, bp)
+        args = (cfg, senders, receivers, edge_mask, h, e, bp, mesh)
         h, e = (checkpoint(_block, *args, use_reentrant=False) if remat
                 else _block(*args))
     return mlp_apply(params["decoder"], h, m)
 
 
 def loss_fn(params, node_feats, edge_feats, senders, receivers, targets,
-            cfg: MeshGraphNetConfig, node_mask=None, edge_mask=None
-            ) -> torch.Tensor:
+            cfg: MeshGraphNetConfig, node_mask=None, edge_mask=None,
+            mesh=None) -> torch.Tensor:
     pred = forward(params, node_feats, edge_feats, senders, receivers, cfg,
-                   edge_mask)
+                   edge_mask, mesh)
     err = (pred.float() - targets.float()) ** 2
     if node_mask is not None:
         err = err * node_mask[:, None]
-        return torch.sum(err) / (torch.clamp(torch.sum(node_mask), min=1)
+        loss = torch.sum(err) / (torch.clamp(torch.sum(node_mask), min=1)
                                  * cfg.d_out)
-    return torch.mean(err)
+    else:
+        loss = torch.mean(err)
+    return loss / mesh.size() if PL.tp(mesh) else loss
 
 
 # ---------------------------------------------------------------------------

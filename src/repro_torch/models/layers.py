@@ -14,6 +14,17 @@ cache tensors are updated, and returned): at 32k positions a functional
 update would copy every layer's cache each step. Where the reference's
 ``dynamic_update_slice`` clamps an out-of-range start into the cache, so
 does ``_write_at``.
+
+Given a mesh of more than one rank (``parallel.tp``), each function is the
+rank-local program of the reference's Megatron placement
+(``launch.shardings.lm_param_specs``): q/k/v, gate/up and MLA's
+``w_uk``/``w_uv`` hold this rank's column block, ``wo``/``w_down`` its row
+block, and the output is summed over ``model``. Where a rank's k/v columns
+are part of a KV head (more ``model`` ranks than KV heads), it gathers its
+head's columns from the ranks that share it before attending. Decode
+attends over this rank's block of the cache's positions for every head and
+merges the partials by a log-sum-exp combine over the cache's sequence
+axes; the new entry is written by the rank that owns its position.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel as PL
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -187,6 +199,61 @@ def _qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
+def _kv_share(cfg: AttnConfig, mesh) -> int:
+    """The ``model`` ranks that share one KV head's columns (1 where each
+    rank holds whole KV heads). The heads must split evenly either way."""
+    m = PL.size_of(mesh, ("model",))
+    h, hk = cfg.n_heads, cfg.n_kv_heads
+    if h % m or (hk % m and m % hk):
+        raise ValueError(f"{h} query / {hk} KV heads do not split over "
+                         f"{m} model ranks")
+    return m // hk if m > hk else 1
+
+
+def _qkv_local(params: Params, x: torch.Tensor, positions: torch.Tensor,
+               cfg: AttnConfig, mesh
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """This rank's q heads and the whole KV heads they read (gathered from
+    the ranks that share a head), normed and rope'd, and the share."""
+    b, s, _ = x.shape
+    dh, dt = cfg.head_dim, x.dtype
+    share = _kv_share(cfg, mesh)
+    q = (x @ params["wq"].to(dt)).reshape(b, s, -1, dh)
+    k = PL.gather_within(x @ params["wk"].to(dt), -1, mesh, "model", share)
+    v = PL.gather_within(x @ params["wv"].to(dt), -1, mesh, "model", share)
+    k, v = k.reshape(b, s, -1, dh), v.reshape(b, s, -1, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v, share
+
+
+def own_columns(kv: torch.Tensor, share: int, mesh) -> torch.Tensor:
+    """This rank's column block (B, S, Hk*Dh / model) of the whole KV heads
+    ``kv`` (B, S, heads, Dh) that ``_qkv_local`` returned."""
+    b, s = kv.shape[:2]
+    flat = kv.reshape(b, s, -1)
+    if share == 1:
+        return flat
+    c = flat.shape[-1] // share
+    return flat.narrow(-1, (PL.rank_of(mesh, ("model",)) % share) * c, c)
+
+
+def gqa_local(params: Params, x: torch.Tensor, positions: torch.Tensor,
+              cfg: AttnConfig, mesh, causal: bool = True,
+              kv_mask: Optional[torch.Tensor] = None):
+    """Rank-local self-attention: (this rank's part of the output, summed
+    over ``model`` by the caller; its own k and v columns)."""
+    b, s, _ = x.shape
+    q, k, v, share = _qkv_local(params, x, positions, cfg, mesh)
+    out = _attend_chunked(q, k, v, positions, positions, kv_mask, causal,
+                          cfg.q_chunk, cfg.scores_f32)
+    part = out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+    return part, own_columns(k, share, mesh), own_columns(v, share, mesh)
+
+
 def gqa_attention(
     params: Params,
     x: torch.Tensor,                    # (B, S, D)
@@ -194,9 +261,13 @@ def gqa_attention(
     cfg: AttnConfig,
     causal: bool = True,
     kv_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Self-attention over x (training / prefill)."""
     b, s, _ = x.shape
+    if PL.tp(mesh):
+        part = gqa_local(params, x, positions, cfg, mesh, causal, kv_mask)[0]
+        return PL.sum_over(part, mesh, ("model",))
     q, k, v = _qkv(params, x, positions, cfg)
     out = _attend_chunked(q, k, v, positions, positions, kv_mask, causal,
                           cfg.q_chunk, cfg.scores_f32)
@@ -221,6 +292,89 @@ def _decode_mask(position: torch.Tensor, skv: int) -> torch.Tensor:
             <= position.reshape(-1, 1))
 
 
+def _seq_start(skv_local: int, mesh, seq_axes) -> int:
+    """The global position of this rank's first cache entry."""
+    return PL.rank_of(mesh, seq_axes) * skv_local
+
+
+def write_owned(cache: torch.Tensor, entry: torch.Tensor,
+                position: torch.Tensor, mesh, seq_axes) -> torch.Tensor:
+    """``_write_at`` on a cache whose positions are blocked over
+    ``seq_axes``: the start is clamped into the GLOBAL cache, and only the
+    rank whose block holds it writes (the others write back what they
+    hold)."""
+    b, s_loc = cache.shape[:2]
+    lo = _seq_start(s_loc, mesh, seq_axes)
+    pos = position.long().clamp(0, s_loc * PL.size_of(mesh, seq_axes) - 1)
+    own = (pos >= lo) & (pos < lo + s_loc)
+    idx = (pos - lo).clamp(0, s_loc - 1)
+    rows = torch.arange(b, device=cache.device)
+    new = entry[:, 0].to(cache.dtype)
+    own = own.reshape(b, *([1] * (new.ndim - 1)))
+    cache[rows, idx] = torch.where(own, new, cache[rows, idx])
+    return cache
+
+
+def local_decode_mask(position: torch.Tensor, skv_local: int, mesh,
+                      seq_axes) -> torch.Tensor:
+    """(B, Skv_local): this rank's cache entries at or before each row's
+    position (``_decode_mask`` over the global positions)."""
+    lo = _seq_start(skv_local, mesh, seq_axes)
+    return (lo + torch.arange(skv_local, device=position.device)[None, :]
+            <= position.reshape(-1, 1))
+
+
+def _merge_heads(scores: torch.Tensor, values, mesh, seq_axes, out_eq: str
+                 ) -> torch.Tensor:
+    """Softmax over this rank's positions and the log-sum-exp combine over
+    ``seq_axes``: ``scores`` (..., Skv_local) float32 with the heads first
+    (B, heads..., 1, Skv), ``out_eq`` the einsum of the weights with
+    ``values`` to (B, 1, heads..., Dv)."""
+    m, e, s = PL.softmax_partials(scores)
+    o = torch.einsum(out_eq, e.to(values.dtype), values)
+    nh = scores.ndim - 3            # head dims between B and the query dim
+
+    def to_o(t):                    # (B, heads.., 1, 1) -> (B, 1, heads.., 1)
+        return t.movedim(nh + 1, 1)
+
+    return PL.merge_partials(m, s, o, mesh, seq_axes, to_o)
+
+
+def gqa_decode_local(params: Params, x: torch.Tensor, position: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cfg: AttnConfig, mesh, seq_axes) -> torch.Tensor:
+    """Rank-local ``gqa_decode`` over a cache blocked by position over
+    ``seq_axes`` and holding every KV head: the token's q, k and v columns
+    gathered over ``model`` (one token a row), the entry written by its
+    owner, attention over this rank's positions for every head, the
+    partials merged, and this rank's heads through its rows of ``wo``.
+    Returns this rank's part of the output (summed over ``model`` by the
+    caller)."""
+    b = x.shape[0]
+    h, hk, dh, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, x.dtype
+    m_ax = ("model",)
+    q = PL.gather_over(x @ params["wq"].to(dt), -1, mesh, m_ax)
+    k = PL.gather_over(x @ params["wk"].to(dt), -1, mesh, m_ax)
+    v = PL.gather_over(x @ params["wv"].to(dt), -1, mesh, m_ax)
+    q, k, v = (q.reshape(b, 1, h, dh), k.reshape(b, 1, hk, dh),
+               v.reshape(b, 1, hk, dh))
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = apply_rope(q, position, cfg.rope_theta)
+    k = apply_rope(k, position, cfg.rope_theta)
+    write_owned(k_cache, k, position[:, 0], mesh, seq_axes)
+    write_owned(v_cache, v, position[:, 0], mesh, seq_axes)
+    mask = local_decode_mask(position, k_cache.shape[1], mesh, seq_axes)
+    qi = q.reshape(b, 1, hk, h // hk, dh).float()
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qi, k_cache.float()) * (
+        1.0 / math.sqrt(dh))
+    s = torch.where(mask[:, None, None, None, :], s, MASK_VALUE)
+    out = _merge_heads(s, v_cache, mesh, seq_axes, "bhrqk,bkhd->bqhrd")
+    out = PL.block(out.to(dt).reshape(b, 1, h * dh), -1, mesh, m_ax)
+    return out @ params["wo"].to(dt)
+
+
 def gqa_decode(
     params: Params,
     x: torch.Tensor,              # (B, 1, D) new token
@@ -228,13 +382,20 @@ def gqa_decode(
     k_cache: torch.Tensor,        # (B, Skv, Hk, Dh) rope'd cached keys
     v_cache: torch.Tensor,        # (B, Skv, Hk, Dh)
     cfg: AttnConfig,
+    mesh=None,
+    seq_axes=(),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step: insert the new token's KV at ``position`` (in
     place) and attend against the full cache. Returns (out, k_cache,
-    v_cache)."""
+    v_cache). On a mesh the caches are this rank's block of positions over
+    ``seq_axes`` (``gqa_decode_local``)."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"gqa_decode takes one token a row, got {s}")
+    if PL.tp(mesh):
+        out = gqa_decode_local(params, x, position, k_cache, v_cache, cfg,
+                               mesh, seq_axes)
+        return PL.sum_over(out, mesh, ("model",)), k_cache, v_cache
     q, k_new, v_new = _qkv(params, x, position, cfg)
     k_cache = _write_at(k_cache, k_new, position[:, 0])
     v_cache = _write_at(v_cache, v_new, position[:, 0])
@@ -260,11 +421,14 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """On a mesh: this rank's gate/up columns and down rows, summed over
+    ``model``."""
     dt = x.dtype
     g = F.silu(x @ params["w_gate"].to(dt))
     u = x @ params["w_up"].to(dt)
-    return (g * u) @ params["w_down"].to(dt)
+    out = (g * u) @ params["w_down"].to(dt)
+    return PL.sum_over(out, mesh, ("model",)) if PL.tp(mesh) else out
 
 
 # ---------------------------------------------------------------------------
@@ -305,10 +469,11 @@ def init_mla(gen: torch.Generator, cfg: MLAConfig, device="cuda",
 
 def _mla_q(params: Params, x: torch.Tensor, positions: torch.Tensor,
            cfg: MLAConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope, q_pe), q_pe rope'd: (B, S, H, nope) and (B, S, H, rope)."""
+    """(q_nope, q_pe), q_pe rope'd: (B, S, H, nope) and (B, S, H, rope)
+    (H is this rank's heads on a mesh)."""
     b, s, _ = x.shape
     q = (x @ params["wq"].to(x.dtype)).reshape(
-        b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+        b, s, -1, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_pe = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
 
@@ -329,10 +494,14 @@ def mla_attention_train(
     x: torch.Tensor,              # (B, S, D)
     positions: torch.Tensor,      # (B, S)
     cfg: MLAConfig,
+    mesh=None,
 ) -> torch.Tensor:
-    """Training/prefill path: decompress K/V and run standard causal MHA."""
+    """Training/prefill path: decompress K/V and run standard causal MHA
+    (on a mesh: this rank's heads, whose ``w_uk``/``w_uv`` columns it
+    holds, then ``wo``'s rows and the sum over ``model``)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = cfg.n_heads // PL.size_of(mesh, ("model",)) if PL.tp(mesh) \
+        else cfg.n_heads
     dt = x.dtype
     q_nope, q_pe = _mla_q(params, x, positions, cfg)
     c_kv, k_pe = mla_new_cache_entries(params, x, positions, cfg)
@@ -343,7 +512,8 @@ def mla_attention_train(
         b, s, h, cfg.qk_rope_dim)], dim=-1)
     out = _attend_chunked(q_full, k_full, v, positions, positions, None, True,
                           cfg.q_chunk)
-    return out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"].to(dt)
+    out = out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"].to(dt)
+    return PL.sum_over(out, mesh, ("model",)) if PL.tp(mesh) else out
 
 
 def mla_attention_decode(
@@ -354,11 +524,19 @@ def mla_attention_decode(
     k_pe_cache: torch.Tensor,     # (B, Skv, rope)
     kv_mask: torch.Tensor,        # (B, Skv)
     cfg: MLAConfig,
+    mesh=None,
+    seq_axes=(),
 ) -> torch.Tensor:
     """Decode path with the absorbed-matmul trick: score against the
     compressed latents directly; W_uk/W_uv are absorbed into the query and
     output sides, so a cached token reads r + rope values instead of
-    2*H*Dh. Scores and softmax in float32."""
+    2*H*Dh. Scores and softmax in float32. On a mesh the caches are this
+    rank's block of positions over ``seq_axes`` (``kv_mask`` its part of
+    the mask): ``mla_decode_local``."""
+    if PL.tp(mesh):
+        return PL.sum_over(mla_decode_local(
+            params, x, position, c_kv_cache, k_pe_cache, kv_mask, cfg, mesh,
+            seq_axes), mesh, ("model",))
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
     dt = x.dtype
@@ -375,6 +553,37 @@ def mla_attention_decode(
     w_uv = params["w_uv"].to(dt).reshape(r, h, cfg.v_head_dim)
     out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)           # absorb W_uv
     return out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"].to(dt)
+
+
+def mla_decode_local(params: Params, x: torch.Tensor, position: torch.Tensor,
+                     c_kv_cache: torch.Tensor, k_pe_cache: torch.Tensor,
+                     kv_mask: torch.Tensor, cfg: MLAConfig, mesh, seq_axes
+                     ) -> torch.Tensor:
+    """Rank-local absorbed MLA decode: this rank's heads' latent queries
+    (its ``w_uk`` columns), gathered over ``model`` with their rope parts;
+    every head scored against this rank's positions, the partials merged
+    over ``seq_axes``; this rank's heads through its ``w_uv`` columns and
+    ``wo`` rows. Returns its part of the output."""
+    b = x.shape[0]
+    r, dt = cfg.kv_lora_rank, x.dtype
+    m_ax = ("model",)
+    q_nope, q_pe = _mla_q(params, x, position, cfg)         # (B,1,H_loc,.)
+    h_loc = q_nope.shape[2]
+    w_uk = params["w_uk"].to(dt).reshape(r, h_loc, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    q_lat = PL.gather_over(q_lat, 2, mesh, m_ax)             # (B,1,H,r)
+    q_pe = PL.gather_over(q_pe, 2, mesh, m_ax)
+    s_lat = torch.einsum("bshr,bkr->bhsk", q_lat.float(), c_kv_cache.float())
+    s_pe = torch.einsum("bshn,bkn->bhsk", q_pe.float(), k_pe_cache.float())
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scores = torch.where(kv_mask[:, None, None, :], (s_lat + s_pe) * scale,
+                         MASK_VALUE)
+    o_lat = _merge_heads(scores, c_kv_cache.to(dt), mesh, seq_axes,
+                         "bhsk,bkr->bshr").to(dt)            # (B,1,H,r)
+    o_lat = PL.block(o_lat, 2, mesh, m_ax)
+    w_uv = params["w_uv"].to(dt).reshape(r, h_loc, cfg.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
+    return out.reshape(b, 1, h_loc * cfg.v_head_dim) @ params["wo"].to(dt)
 
 
 # ---------------------------------------------------------------------------

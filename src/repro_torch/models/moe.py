@@ -12,9 +12,23 @@ and of the contraction dims (``_moe_inner_2d``, the decode layout). Here
 both bodies are rank-local functions of the rank's indices. With
 ``mesh=None`` the whole program runs with every expert local; on a
 one-rank mesh each body runs as rank 0 with axis sizes of 1, where its
-collectives are identities. A mesh of more than one rank raises: the
-rank-local expert parallelism with its collectives comes with the zoo's
-multi-rank slice.
+collectives are identities. On a larger mesh (``_moe_local``):
+
+  * FSDP (train, prefill): the layer's ``w_in``/``w_out`` blocks are
+    all-gathered over ``data`` (the adjoint, in the backward, is a
+    reduce-scatter), each rank routes its data block of tokens (the
+    capacity comes from that local count, as the reference's ``t_loc``)
+    through its ``model`` rank's experts, and the outputs are summed over
+    ``model``.
+  * ``2d`` (decode): the tokens are gathered over ``data_axes`` (the axes
+    the batch is split on, none for a batch of 1), each rank multiplies its block of experts and of the
+    contraction dims (the reference's data axis is ``("data",)``, even on
+    two pods), the partial products are summed over ``data`` and the
+    output over ``model`` and ``data``; each rank keeps its batch rows.
+  * Shared experts are column-parallel in, row-parallel out: the fused
+    gate/up columns are gathered over ``model`` (the two halves of a
+    rank's rows of ``shared_w_out`` lie on different ranks), and the
+    output is summed over ``model``.
 
 Dropped pairs. A (token, expert) pair whose rank in its expert is
 ``>= cap`` is dropped, and only such pairs. The reference routes every
@@ -33,12 +47,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel as PL
 from repro_torch.models.layers import _init
 
 Params = Dict[str, Any]
-
-NEXT_SLICE = ("expert parallelism across ranks comes with the zoo's "
-              "multi-rank slice; this port runs the MoE on one rank")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,11 +181,13 @@ def _moe_inner_2d(
     cfg: MoEConfig,
     model_rank: int = 0,
     data_rank: int = 0,
+    mesh=None,
+    data_axis: Tuple[str, ...] = (),
 ) -> torch.Tensor:
     """The fully-resident 2D body (decode): this rank's block of experts
-    and of the contraction dims. The reference's psums of the partial
-    products over ``data`` and of the output over every axis are the
-    identity on one rank."""
+    and of the contraction dims. The partial products are summed over
+    ``data_axis`` of ``mesh`` (the identity on one rank); the caller sums
+    the output over every axis."""
     t, d = x.shape
     e_loc, d_loc, _ = w_in.shape
     dt = x.dtype
@@ -182,11 +196,35 @@ def _moe_inner_2d(
     disp_t, disp_g = dispatch(idx, gate, cfg, cap, e_loc, model_rank * e_loc)
     x_pad = torch.cat([x, x.new_zeros((1, d))], dim=0)
     xe = x_pad[disp_t].narrow(2, data_rank * d_loc, d_loc)   # (E_loc, cap, d_loc)
-    h = _swiglu_halves(torch.bmm(xe, w_in.to(dt)))            # (E_loc, cap, f)
+    h = torch.bmm(xe, w_in.to(dt))                            # (E_loc, cap, 2f)
+    if PL.tp(mesh):
+        h = PL.sum_over(h, mesh, data_axis)
+    h = _swiglu_halves(h)
     f_loc = w_out.shape[1]
     h = h.narrow(2, data_rank * f_loc, f_loc)
     oe = torch.bmm(h, w_out.to(dt))
     return _combine(oe, disp_t, disp_g, t)
+
+
+def _moe_local(params: Params, xt: torch.Tensor, cfg: MoEConfig, mesh,
+               data_axes: Tuple[str, ...], model_axis: str) -> torch.Tensor:
+    """The routed experts' rank-local program on a mesh (module
+    docstring): ``xt`` is this rank's block of tokens over
+    ``data_axes``."""
+    m_ax = (model_axis,)
+    mr = PL.rank_of(mesh, m_ax)
+    if cfg.ep_mode == "2d":
+        wd = ("data",)
+        every = PL.gather_over(xt, 0, mesh, data_axes)
+        out = _moe_inner_2d(every, params["router"], params["w_in"],
+                            params["w_out"], cfg, mr, PL.rank_of(mesh, wd),
+                            mesh, wd)
+        return PL.block(PL.sum_over(out, mesh, m_ax + wd), 0, mesh,
+                        data_axes)
+    w_in = PL.gather_over(params["w_in"], -1, mesh, ("data",))
+    w_out = PL.gather_over(params["w_out"], -1, mesh, ("data",))
+    out = _moe_inner(xt, params["router"], w_in, w_out, cfg, mr)
+    return PL.sum_over(out, mesh, m_ax)
 
 
 def moe_ffn(
@@ -197,13 +235,24 @@ def moe_ffn(
     data_axes: Tuple[str, ...] = ("data",),
     model_axis: str = "model",
 ) -> torch.Tensor:
+    """On a mesh ``x`` holds this rank's block of tokens over ``data_axes``
+    (the reference's ``shard_map`` token split)."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
     args = (xt, params["router"], params["w_in"], params["w_out"], cfg)
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(f"moe_ffn on a {mesh.size()}-rank mesh: "
-                                  f"{NEXT_SLICE}")
+    if PL.tp(mesh):
+        dt = x.dtype
+        m_ax = (model_axis,)
+        out = _moe_local(params, xt, cfg, mesh, tuple(data_axes or ()),
+                         model_axis)
+        if "shared_w_in" in params:
+            hs = PL.gather_over(xt @ params["shared_w_in"].to(dt), -1, mesh,
+                                m_ax)
+            hs = PL.block(_swiglu_halves(hs), -1, mesh, m_ax)
+            out = out + PL.sum_over(hs @ params["shared_w_out"].to(dt), mesh,
+                                    m_ax)
+        return out.reshape(shape)
     if mesh is not None and cfg.ep_mode == "2d":
         out = _moe_inner_2d(*args)
     else:

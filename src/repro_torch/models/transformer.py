@@ -14,6 +14,21 @@ Serving. ``prefill`` returns the last position's logits and a cache of the
 prompt's length; ``decode_step`` writes each new token's entry into the
 cache IN PLACE (the returned cache is the caller's, updated: equal to the
 reference's functional result) and attends against the whole cache.
+
+On a mesh of more than one rank every function is the rank-local program
+of the reference's placements (``launch.shardings.lm_param_specs``,
+``launch.steps``): the batch is blocked over ``data_axes`` (none where
+the batch does not split over them), the layers are Megatron
+tensor-parallel over ``model`` (``models.layers``), and the embedding and
+unembedding hold this rank's block of vocabulary rows. The embedding
+looks up the ids in its own rows and sums over ``model``; the loss is a
+vocabulary-parallel cross-entropy (the row max, the sum of exponentials
+and the target's logit each reduced over ``model``) and returns this
+rank's SHARE of the global mean loss (``models.parallel``'s convention).
+``prefill`` and ``decode_step`` return logits blocked over the vocabulary;
+their caches are this rank's block of positions over ``model`` (every
+axis where the batch does not split): prefill re-blocks each layer's k/v
+columns by position with an all-to-all over ``model``.
 """
 from __future__ import annotations
 
@@ -24,6 +39,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as PL
+from repro_torch.models.embedding import row_partial
 from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
 from repro_torch.tree import tree_leaves, to_parameter_dict
 
@@ -138,7 +155,7 @@ def _ffn(cfg: TransformerConfig, block: Params, hn: torch.Tensor, mesh,
     if cfg.moe is not None:
         return moe_ffn(block["ffn"], hn, cfg.moe, mesh=mesh,
                        data_axes=data_axes)
-    return L.swiglu(block["ffn"], hn)
+    return L.swiglu(block["ffn"], hn, mesh)
 
 
 def _block_fwd(cfg: TransformerConfig, mesh, data_axes, h: torch.Tensor,
@@ -146,17 +163,36 @@ def _block_fwd(cfg: TransformerConfig, mesh, data_axes, h: torch.Tensor,
     hn = L.rms_norm(h, block["ln1"])
     if cfg.attention == "mla":
         attn_out = L.mla_attention_train(block["attn"], hn, positions,
-                                         cfg.mla_cfg)
+                                         cfg.mla_cfg, mesh)
     else:
         attn_out = L.gqa_attention(block["attn"], hn, positions,
-                                   cfg.attn_cfg)
+                                   cfg.attn_cfg, mesh=mesh)
     h = h + attn_out
     return h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh, data_axes)
 
 
-def _embed(params: Params, tokens: torch.Tensor, dt: torch.dtype
-           ) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(dt)
+def _vocab_start(table: torch.Tensor, mesh) -> int:
+    """The first vocabulary row of this rank's block of ``table``."""
+    return PL.rank_of(mesh, ("model",)) * table.shape[0]
+
+
+def _embed(params: Params, tokens: torch.Tensor, dt: torch.dtype,
+           mesh=None) -> torch.Tensor:
+    """The tokens' rows in ``dt``; on a mesh the ids in this rank's rows
+    (the rest zero), summed over ``model``."""
+    table = params["embed"]
+    if not PL.tp(mesh):
+        return table[tokens.long()].to(dt)
+    rows = row_partial(table, tokens.long(), None,
+                       PL.rank_of(mesh, ("model",)), dt)
+    return PL.sum_over(rows, mesh, ("model",))
+
+
+def cache_seq_axes(mesh, data_axes) -> tuple:
+    """The axes a cache's positions are blocked over on ``mesh``
+    (``launch.steps._kv_cache_spec``): ``model`` where the batch is split
+    over the data axes, every axis where it is not."""
+    return ("model",) if data_axes else tuple(mesh.mesh_dim_names)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -167,7 +203,7 @@ def hidden_states(params: Params, tokens: torch.Tensor,
                   cfg: TransformerConfig, mesh=None, data_axes=("data",)
                   ) -> torch.Tensor:
     b, s = tokens.shape
-    h = _embed(params, tokens, cfg.compute_dtype)
+    h = _embed(params, tokens, cfg.compute_dtype, mesh)
     positions = _positions(b, s, h.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for block in L.unstack(params["blocks"], cfg.n_layers):
@@ -179,16 +215,30 @@ def hidden_states(params: Params, tokens: torch.Tensor,
     return L.rms_norm(h, params["final_norm"])
 
 
-def _xent_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _xent_sum(logits: torch.Tensor, targets: torch.Tensor, mesh=None,
+              v_start: int = 0) -> torch.Tensor:
+    """Summed cross-entropy; on a mesh ``logits`` are this rank's vocabulary
+    columns from ``v_start``, and the row max, the sum of exponentials and
+    the target's logit are reduced over ``model``."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.sum(logz - gold)
+    if not PL.tp(mesh):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return torch.sum(logz - gold)
+    m_ax = ("model",)
+    v_loc = logits.shape[-1]
+    big = PL.max_over(logits.amax(dim=-1, keepdim=True), mesh, m_ax)
+    sumexp = PL.sum_over(torch.exp(logits - big).sum(dim=-1), mesh, m_ax)
+    local = targets.long() - v_start
+    hit = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])
+    gold = PL.sum_over(gold[..., 0] * hit.to(logits.dtype), mesh, m_ax)
+    return torch.sum(torch.log(sumexp) + big[..., 0] - gold)
 
 
-def _chunk_loss(h: torch.Tensor, unemb: torch.Tensor, targets: torch.Tensor
-                ) -> torch.Tensor:
-    return _xent_sum(h @ unemb.T, targets)
+def _chunk_loss(h: torch.Tensor, unemb: torch.Tensor, targets: torch.Tensor,
+                mesh=None, v_start: int = 0) -> torch.Tensor:
+    return _xent_sum(h @ unemb.T, targets, mesh, v_start)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
@@ -196,20 +246,29 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
             ) -> torch.Tensor:
     """Mean next-token cross-entropy; the vocab projection in sequence
     chunks of ``loss_chunk`` (each recomputed in the backward under
-    ``remat``, so one chunk's logits live at a time)."""
+    ``remat``, so one chunk's logits live at a time). On a mesh: this
+    rank's share of the global mean (module docstring)."""
     h = hidden_states(params, tokens, cfg, mesh, data_axes)   # (B, S, D)
     b, s, _ = h.shape
     unemb = params["unembed"].to(cfg.compute_dtype)
+    n = b * s
+    v_start = 0
+    if PL.tp(mesh):
+        # the global token count (b * s on each batch block) times the
+        # ranks that compute each block's loss: this rank's share
+        n *= mesh.size()
+        v_start = _vocab_start(params["unembed"], mesh)
     lc = min(cfg.loss_chunk, s)
     if s % lc:                                            # ragged: no chunking
-        return _xent_sum(h @ unemb.T, targets) / targets.numel()
+        return _xent_sum(h @ unemb.T, targets, mesh, v_start) / n
     remat = cfg.remat and torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, s, lc):
-        args = (h[:, lo:lo + lc], unemb, targets[:, lo:lo + lc])
+        args = (h[:, lo:lo + lc], unemb, targets[:, lo:lo + lc], mesh,
+                v_start)
         total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
                          if remat else _chunk_loss(*args))
-    return total / (b * s)
+    return total / n
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +301,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Process a full prompt; return last-position logits (B, vocab) and a
     populated cache of the prompt's length, stacked (L, B, S, ...), each
     layer's entries written into it as the layer runs."""
+    if PL.tp(mesh):
+        return _prefill_local(params, tokens, cfg, mesh, data_axes)
     b, s = tokens.shape
     dt = cfg.compute_dtype
     h = _embed(params, tokens, dt)
@@ -268,6 +329,41 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     return _logits(params, h[:, -1, :], dt), cache
 
 
+def _prefill_local(params: Params, tokens: torch.Tensor,
+                   cfg: TransformerConfig, mesh, data_axes
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``prefill``'s rank-local program: logits of this rank's vocabulary
+    rows, and this rank's block of the cache's positions."""
+    b, s = tokens.shape
+    dt = cfg.compute_dtype
+    m_ax = ("model",)
+    seq_axes = cache_seq_axes(mesh, data_axes)
+    h = _embed(params, tokens, dt, mesh)
+    positions = _positions(b, s, h.device)
+    cache = init_kv_cache(cfg, b, s // PL.size_of(mesh, seq_axes),
+                          device=h.device)
+    for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+        hn = L.rms_norm(h, block["ln1"])
+        if cfg.attention == "mla":
+            c_kv, k_pe = L.mla_new_cache_entries(block["attn"], hn,
+                                                 positions, cfg.mla_cfg)
+            attn_out = L.mla_attention_train(block["attn"], hn, positions,
+                                             cfg.mla_cfg, mesh)
+            cache["c_kv"][i] = PL.block(c_kv, 1, mesh, seq_axes)
+            cache["k_pe"][i] = PL.block(k_pe, 1, mesh, seq_axes)
+        else:
+            part, k, v = L.gqa_local(block["attn"], hn, positions,
+                                     cfg.attn_cfg, mesh)
+            attn_out = PL.sum_over(part, mesh, m_ax)
+            for name, cols in (("k", k), ("v", v)):
+                pos = PL.columns_to_positions(cols, mesh, "model", seq_axes)
+                cache[name][i] = pos.reshape(cache[name][i].shape)
+        h = h + attn_out
+        h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
+                     data_axes)
+    return _logits(params, h[:, -1, :], dt), cache
+
+
 def decode_step(params: Params, cache: Dict[str, torch.Tensor],
                 next_token: torch.Tensor,   # (B,) int
                 position: torch.Tensor,     # (B,) current position to write
@@ -277,24 +373,36 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
     """One token of autoregressive decode against a (large) KV cache: each
     layer writes the token's entry at ``position`` (in place, the start
     clamped into the cache) and attends to every entry at or before it.
-    Returns (logits (B, vocab), ``cache``)."""
+    Returns (logits (B, vocab), ``cache``). On a mesh the cache is this
+    rank's block of positions (``cache_seq_axes``) and the logits its
+    block of the vocabulary."""
     dt = cfg.compute_dtype
-    h = _embed(params, next_token, dt)[:, None, :]           # (B, 1, D)
+    tp = PL.tp(mesh)
+    seq_axes = cache_seq_axes(mesh, data_axes) if tp else ()
+    h = _embed(params, next_token, dt, mesh)[:, None, :]     # (B, 1, D)
     pos = position[:, None]
     for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
         hn = L.rms_norm(h, block["ln1"])
         if cfg.attention == "mla":
             c_new, pe_new = L.mla_new_cache_entries(block["attn"], hn, pos,
                                                     cfg.mla_cfg)
-            c_kv = L._write_at(cache["c_kv"][i], c_new, position)
-            k_pe = L._write_at(cache["k_pe"][i], pe_new, position)
-            kv_mask = L._decode_mask(position, c_kv.shape[1])
+            c_kv, k_pe = cache["c_kv"][i], cache["k_pe"][i]
+            if tp:
+                L.write_owned(c_kv, c_new, position, mesh, seq_axes)
+                L.write_owned(k_pe, pe_new, position, mesh, seq_axes)
+                kv_mask = L.local_decode_mask(position, c_kv.shape[1], mesh,
+                                              seq_axes)
+            else:
+                L._write_at(c_kv, c_new, position)
+                L._write_at(k_pe, pe_new, position)
+                kv_mask = L._decode_mask(position, c_kv.shape[1])
             attn_out = L.mla_attention_decode(block["attn"], hn, pos, c_kv,
-                                              k_pe, kv_mask, cfg.mla_cfg)
+                                              k_pe, kv_mask, cfg.mla_cfg,
+                                              mesh, seq_axes)
         else:
             attn_out, _, _ = L.gqa_decode(block["attn"], hn, pos,
                                           cache["k"][i], cache["v"][i],
-                                          cfg.attn_cfg)
+                                          cfg.attn_cfg, mesh, seq_axes)
         h = h + attn_out
         h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
                      data_axes)

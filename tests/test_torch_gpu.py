@@ -891,3 +891,60 @@ def test_smoke_cell_on_card_equals_cpu(cuda, arch, shape, monkeypatch):
         assert g.device.type == "cuda" and torch.isfinite(g.float()).all()
         torch.testing.assert_close(g.detach().cpu().float(),
                                    w.detach().float(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_zoo_cell_on_a_thread_mesh_equals_one_rank(cuda, shape, monkeypatch):
+    """SMOKE Qwen3-4B's ``shape`` cell as the rank-local program of a
+    (1, 4) mesh whose ranks are threads on the card (its 2 KV heads split
+    below a head; ``launch.threaded.ThreadedMesh``), each rank's output
+    block against the same block of the single-device program on the card:
+    float32 compute with TF32 off, rtol = atol = 1e-5 (the CPU mesh tests'
+    tolerance). The vocabulary is rounded up to a multiple of 4, as the
+    reference's placement requires."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.sampling import local_args
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.threaded import ThreadedMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = get_arch("qwen3-4b")
+    cfg = dataclasses.replace(spec.smoke, vocab=176)
+    with torch.no_grad():
+        params = tree_map(lambda p: p.detach(), T.init(
+            cfg, seed=0, device=cuda, dtype=torch.bfloat16))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=cuda)
+    if shape == "prefill_32k":
+        args = (params, {"tokens": tokens})
+        with torch.no_grad():
+            want = T.prefill(params, tokens, cfg)
+    else:
+        cache = {k: v.normal_(generator=gen) for k, v in
+                 T.init_kv_cache(cfg, 2, 64, device=cuda).items()}
+        step = {"token": tokens[:, 0],
+                "position": torch.tensor([5, 40], device=cuda)}
+        args = (params, cache, step)
+        with torch.no_grad():
+            want = T.decode_step(params, tree_map(torch.clone, cache),
+                                 step["token"], step["position"], cfg)
+
+    def run(rank, mesh):
+        cell = build_cell(spec, shape, mesh, use_full=False, cfg_override=cfg)
+        got = cell.step_fn(*local_args(cell, args, mesh))
+        specs = tree_leaves(cell.out_shardings, is_leaf=SH.is_spec)
+        return [(g.cpu(), SH.local_block(w, sp, mesh).cpu()) for g, w, sp
+                in zip(tree_leaves(got), tree_leaves(want), specs)]
+
+    with ThreadedMesh((1, 4), device_type="cuda", timeout=300) as tm:
+        ranks = tm.run(run)
+    for pairs in ranks:
+        for g, w in pairs:
+            assert g.shape == w.shape
+            torch.testing.assert_close(g.float(), w.float(), rtol=1e-5,
+                                       atol=1e-5)

@@ -17,11 +17,13 @@ shardings,steps,sampling,dryrun}``) against the JAX reference's.
   model functions with ``mesh=None``. The MoE cells run at a capacity no
   pair exceeds, as in ``tests/test_torch_zoo.py``: where pairs overflow, the
   reference's dispatch clobbers a kept slot.
-* A zoo cell on a mesh of more than one rank raises ``NotImplementedError``
-  naming the multi-rank slice.
+* A zoo cell builds on the 16x16 production mesh, and its rank-local step
+  traces there on fake tensors (FULL width, one layer).
 * On the 16x16 and 2x16x16 production meshes: every FULL tenant's parameter
-  and optimizer-state placements equal the reference's ``P`` leaf for leaf,
-  and every cell's per-chip logical input bytes equal the reference's. The
+  and optimizer-state placements equal the reference's ``P`` leaf for leaf
+  (the zoo's train placements, and the MoE decode cells' ``2d`` expert
+  layout, too), and all 44 cells' per-chip logical input bytes equal the
+  reference's. The
   reference side runs in a subprocess that forces 512 host devices, as
   ``tests/test_distributed.py`` does; the port side joins PyTorch's fake
   process group, torn down after each test.
@@ -68,6 +70,10 @@ CELLS = [(a, s) for a in list_archs() for s in get_arch(a).shapes]
 IDS = [f"{a}-{s}" for a, s in CELLS]
 RECSYS_CELLS = [(a, s) for a, s in CELLS if a in RECSYS]
 RECSYS_IDS = [f"{a}-{s}" for a, s in RECSYS_CELLS]
+ZOO = [a for a in list_archs() if a not in RECSYS]
+ZOO_CELLS = [(a, s) for a, s in CELLS if a in ZOO]
+ZOO_IDS = [f"{a}-{s}" for a, s in ZOO_CELLS]
+MOE = [a for a in ZOO if getattr(get_arch(a).full, "moe", None) is not None]
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 TO_PORT = {"two-tower-retrieval": interop.two_tower_params_from_numpy,
            "dcn-v2": interop.dcn_v2_params_from_numpy,
@@ -238,10 +244,20 @@ def test_step_fn_matches_reference(arch, shape, one_device_mesh):
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-moe-30b-a3b",
                                   "meshgraphnet"])
-def test_zoo_cells_refuse_a_multi_rank_mesh(arch, production):
+def test_zoo_cells_build_and_trace_on_the_pod(arch, production):
+    """The arch's first cell at FULL width, one layer deep, on the 16x16
+    fake mesh: rank 0's step traces on fake tensors of its block shapes,
+    with the collectives of its tensor/expert/edge parallelism."""
     spec = get_arch(arch)
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
-        build_cell(spec, next(iter(spec.shapes)), production("pod"))
+    mesh = production("pod")
+    cfg = dataclasses.replace(spec.full, n_layers=1)
+    cell = build_cell(spec, next(iter(spec.shapes)), mesh, cfg_override=cfg)
+    traced = dryrun.trace_cell(cell, mesh)
+    coll = traced["counts"].collectives.counts
+    assert coll.get("all-reduce", 0) > 0 and traced["peak_bytes"] > 0
+    assert coll.get("reduce-scatter", 0) > 0        # ZeRO's gradient blocks
+    if spec.family == "lm":
+        assert coll.get("all-gather", 0) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -262,24 +278,26 @@ REFERENCE_SCRIPT = textwrap.dedent("""
     def entries(spec):
         return [list(e) if isinstance(e, tuple) else e for e in spec]
 
-    out = {"specs": {}, "bytes": {}}
+    out = {"specs": {}, "bytes": {}, "specs_2d": {}}
+    flat = lambda t: [entries(x) for x in jax.tree.leaves(
+        t, is_leaf=lambda x: isinstance(x, P))]
     for mesh_name in ("pod", "multipod"):
         mesh = make_production_mesh(multi_pod=(mesh_name == "multipod"))
         for a in list_archs():
             spec = get_arch(a)
-            if spec.family != "recsys":
-                continue
+            first = next(iter(spec.shapes))
             for s in spec.shapes:
                 cell = build_cell(spec, s, mesh, use_full=True)
                 out["bytes"][f"{a}|{s}|{mesh_name}"] = _logical_bytes(cell,
                                                                      mesh)
-                if s == "train_batch":
-                    flat = lambda t: [entries(x) for x in jax.tree.leaves(
-                        t, is_leaf=lambda x: isinstance(x, P))]
+                if s == first:      # every family's first cell trains
                     pspec, ospec = cell.in_shardings[:2]
                     out["specs"][f"{a}|{mesh_name}"] = {
                         "params": flat(pspec), "m": flat(ospec.m),
                         "v": flat(ospec.v), "step": entries(ospec.step)}
+                if s == "decode_32k" and getattr(spec.full, "moe", None):
+                    out["specs_2d"][f"{a}|{mesh_name}"] = flat(
+                        cell.in_shardings[0])
     print(json.dumps(out))
 """)
 
@@ -302,12 +320,19 @@ def _entries(spec):
     return [list(e) if isinstance(e, tuple) else e for e in spec]
 
 
-@pytest.mark.parametrize("arch", RECSYS)
+def _flat_specs(tree):
+    return [_entries(s) for s in tree_leaves(tree, is_leaf=SH.is_spec)]
+
+
+@pytest.mark.parametrize("arch", RECSYS + ZOO)
 def test_param_and_opt_placements_equal_the_reference(
         arch, reference_production, production):
+    tenant = get_arch(arch)
     for mesh_name in ("pod", "multipod"):
         mesh = production(mesh_name)
-        cell = build_cell(get_arch(arch), "train_batch", mesh, use_full=True)
+        cell = build_cell(tenant, next(iter(tenant.shapes)), mesh,
+                          use_full=True)
+        assert cell.kind == "train"
         pspec, ospec = cell.in_shardings[:2]
         want = reference_production["specs"][f"{arch}|{mesh_name}"]
 
@@ -326,7 +351,21 @@ def test_param_and_opt_placements_equal_the_reference(
                                   if spec.dim_axes(d)}
 
 
-@pytest.mark.parametrize("arch,shape", RECSYS_CELLS, ids=RECSYS_IDS)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_2d_placements_equal_the_reference(
+        arch, reference_production, production):
+    """The MoE decode cells switch the experts to the ``2d`` layout: E on
+    ``model`` and the contraction dims on ``data``."""
+    for mesh_name in ("pod", "multipod"):
+        mesh = production(mesh_name)
+        cell = build_cell(get_arch(arch), "decode_32k", mesh, use_full=True)
+        assert cell.meta["cfg"].moe.ep_mode == "2d"
+        assert _flat_specs(cell.in_shardings[0]) == \
+            reference_production["specs_2d"][f"{arch}|{mesh_name}"]
+
+
+@pytest.mark.parametrize("arch,shape", RECSYS_CELLS + ZOO_CELLS,
+                         ids=RECSYS_IDS + ZOO_IDS)
 def test_logical_bytes_per_chip_equal_the_reference(
         arch, shape, reference_production, production):
     for mesh_name in ("pod", "multipod"):

@@ -13,11 +13,15 @@
   write each output once (an input updated in place and returned, what the
   step wrote into it), whatever ops the step reads them with, and the
   floor is those bytes and the model FLOPs over the H100 constants; so for
-  a SMOKE LM decode cell and a SMOKE GNN train cell.
+  a SMOKE LM decode cell and a SMOKE GNN train cell; on the 16x16 fake
+  mesh a zoo cell's collectives (a FULL-width prefill's all-reduces, KV
+  gathers and cache all-to-alls) are counted by those formulas, and a
+  decode cell's compulsory bytes are its rank's blocks.
 * ``python -m repro_torch.launch.dryrun`` traces one FULL cell to ``ok`` in
   a subprocess and writes only the results file it is given.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -246,3 +250,67 @@ def test_zoo_cell_floor_reads_inputs_once_and_writes_outputs_once(arch,
     assert floor["t_bound_s"] == max(want / 3.35e12,
                                      cell.model_flops / 989.4e12)
     assert counts.bytes >= want          # the eager program moves more
+
+
+def test_zoo_collectives_and_floor_on_the_pod():
+    """Rank 0's program of FULL Qwen3-4B cut to one layer on the 16x16
+    fake mesh. Prefill: one all-reduce for the embedding and one for each
+    of the attention's and the MLP's row-parallel outputs; k and v each
+    gathered from the 2 ranks that share a KV head (8 heads over 16 model
+    ranks) and re-blocked by position with an all-to-all over ``model``;
+    every result's bytes and ring-model link bytes as
+    ``roofline.step_counts.link_bytes`` gives them. Decode: the compulsory
+    bytes are this rank's blocks (its weight block and its cache block of
+    positions) read once, of its embedding rows the ones its tokens
+    gather, and what it writes: its logits block and, in its cache block,
+    one entry a row and layer."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline.step_counts import link_bytes
+    from repro_torch.tree import tree_leaves
+
+    spec = get_arch("qwen3-4b")
+    cfg = dataclasses.replace(spec.full, n_layers=1)
+    mesh = make_production_mesh()
+    try:
+        pre = build_cell(spec, "prefill_32k", mesh, cfg_override=cfg)
+        got = dryrun.trace_cell(pre, mesh)["counts"].collectives
+        b, s, d = 32 // 16, 32_768, cfg.d_model
+        bf16 = 2
+        cols = cfg.n_kv_heads * cfg.head_dim // 16          # this rank's
+        want = {"all-reduce": [(b * s * d * bf16, 16)] * 3,
+                "all-gather": [(b * s * 2 * cols * bf16, 2)] * 2,
+                "all-to-all": [(b * s * cols * bf16, 16)] * 2}
+        assert got.counts == {k: len(v) for k, v in want.items()}
+        assert got.result_bytes == {k: sum(n for n, _ in v)
+                                    for k, v in want.items()}
+        assert got.link_bytes == pytest.approx(sum(
+            link_bytes(op, n, g) for op, v in want.items() for n, g in v),
+            rel=1e-12)
+
+        dec = build_cell(spec, "decode_32k", mesh, cfg_override=cfg)
+        with FakeTensorMode():
+            args = dryrun._local_args(dec, mesh)
+            counts = count_step(dec.step_fn, *args)
+        params, cache, batch = args
+        rows = 128 // 16                                    # this rank's
+        embed = params["embed"]
+        inputs = _nbytes(args) - _nbytes(embed) + rows * d * bf16
+        logits = rows * cfg.vocab // 16 * bf16
+        entries = sum(c[:, :, 0].numel() * c.element_size()
+                      for c in cache.values())
+        assert counts.compulsory_bytes == inputs + logits + entries
+        blocks = sum(math.prod(SH.local_shape(l.shape, sp, mesh))
+                     * l.dtype.itemsize for l, sp in zip(
+                         tree_leaves(dec.args_spec),
+                         tree_leaves(dec.in_shardings, is_leaf=SH.is_spec)))
+        assert _nbytes(args) == blocks == dryrun._logical_bytes(dec, mesh)
+    finally:
+        dist.destroy_process_group()

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import deepseek_v2_lite_16b as j_deepseek
 from repro.configs import get_arch as j_get_arch
@@ -403,6 +404,10 @@ def test_moe_overflow_drops_only_the_overflowing_pairs(t):
 
 
 def test_moe_on_the_one_rank_mesh_and_refusing_more_ranks():
+    """Both layouts on the one-rank mesh equal the mesh-free MoE; on the
+    16x16 fake mesh neither refuses any more: rank 0's blocks (16 experts,
+    one a model rank) run its rank-local program on fake tensors and give
+    its tokens' rows (values on many ranks: tests/test_torch_zoo_mesh.py)."""
     tree, jcfg = _moe_params(5, n_shared=1)
     cfg = _port_moe_cfg(jcfg)
     x = torch.from_numpy(_tokens_x(5, 16))
@@ -415,8 +420,18 @@ def test_moe_on_the_one_rank_mesh_and_refusing_more_ranks():
                              mesh=mesh)
             _close(got, plain)
         big = make_production_mesh()
-        with pytest.raises(NotImplementedError, match="multi-rank slice"):
-            TM.moe_ffn(params, x, cfg, mesh=big)
+        d, f, n = 64, cfg.d_ff, 16
+        blocks = {"fsdp": {"w_in": (1, d, 2 * f // n), "w_out": (1, f, d // n)},
+                  "2d": {"w_in": (1, d // n, 2 * f), "w_out": (1, f // n, d)}}
+        with FakeTensorMode():
+            for mode, shapes in blocks.items():
+                local = {"router": torch.empty(d, n),
+                         "shared_w_in": torch.empty(d, 2 * f // n),
+                         "shared_w_out": torch.empty(f // n, d),
+                         **{k: torch.empty(v) for k, v in shapes.items()}}
+                wide = dataclasses.replace(cfg, n_experts=n, ep_mode=mode)
+                out = TM.moe_ffn(local, torch.empty(16, d), wide, mesh=big)
+                assert tuple(out.shape) == (16, d)
     finally:
         torch.distributed.destroy_process_group()
 
