@@ -1874,11 +1874,11 @@ CELL_FEED_BATCHES = 4      # batches compared between the placed and plain feeds
 PEAK_SLACK, PEAK_SLACK_B = 1.10, 128 << 20
 
 
-def start_dryrun(mesh: str, out: Path, arch: str = ""):
+def start_dryrun(mesh: str, out: Path, arch: str = "", nice: int = 0):
     """``python -m repro_torch.launch.dryrun --all --mesh <mesh>`` (or
     ``--arch <arch>``) as a subprocess on the host's CPU (the card hidden
-    from it), writing ``out`` and its log beside it. Returns (process, log
-    file, start time)."""
+    from it, at ``nice``), writing ``out`` and its log beside it. Returns
+    (process, log file, start time)."""
     out.unlink(missing_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
@@ -1887,7 +1887,8 @@ def start_dryrun(mesh: str, out: Path, arch: str = ""):
     proc = subprocess.Popen(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
          *which, "--mesh", mesh, "--force", "--out", str(out)],
-        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+        preexec_fn=(lambda: os.nice(nice)) if nice else None)
     return proc, log, time.perf_counter()
 
 
@@ -2571,14 +2572,19 @@ def cache_check(rank_cache: dict, want: dict, given, positions,
     return out
 
 
-def mesh_cell(tm, spec, shape: str, cfg, params) -> dict:
+def mesh_cell(tm, spec, shape: str, cfg, params, param_blocks: dict
+              ) -> dict:
     """One cell of ``spec`` on the rank-thread mesh ``tm`` against the
     single-device program on the same arguments: logits gathered from the
     ranks' vocabulary blocks (relative Frobenius error, argmax agreement),
-    every rank's cache block (``cache_check``), ms a call of each."""
+    every rank's cache block (``cache_check``), ms a call of each. A
+    rank's block of ``params`` under a placement it has cut before is
+    taken from ``param_blocks``."""
     import torch
 
+    from repro_torch.launch import shardings as SH
     from repro_torch.launch.sampling import local_args
+    from repro_torch.tree import tree_leaves
     from repro_torch.launch.steps import build_cell
     from repro_torch.models.parallel import rank_of
 
@@ -2596,7 +2602,13 @@ def mesh_cell(tm, spec, shape: str, cfg, params) -> dict:
 
     def prepare(rank, mesh):
         cell = build_cell(spec, shape, mesh, cfg_override=cfg)
-        ranks[rank] = (cell, local_args(cell, args, mesh))
+        key = (rank, str(tree_leaves(cell.in_shardings[0],
+                                     is_leaf=SH.is_spec)))
+        if key not in param_blocks:
+            param_blocks[key] = local_args(
+                cell, (params,) + (None,) * (len(args) - 1), mesh)[0]
+        rest = local_args(cell, (None,) + args[1:], mesh)[1:]
+        ranks[rank] = (cell, (param_blocks[key], *rest))
 
     def step(rank, mesh):
         cell, local = ranks[rank]
@@ -2666,10 +2678,10 @@ def mesh_lm(tm, arch: str, smi: str) -> dict:
     with torch.no_grad():
         params = tree_map(lambda p: p.detach(), T.init(
             full, seed=SEED, device=DEVICE, dtype=torch.bfloat16))
-    out = {}
+    out, param_blocks = {}, {}
     for shape in MESH_CELLS:
         for mode, cfg in (("float32", f32), ("bf16", full)):
-            r = mesh_cell(tm, spec, shape, cfg, params)
+            r = mesh_cell(tm, spec, shape, cfg, params, param_blocks)
             c = r["cache"]
             ok = (r["logits_rel"] <= MESH_RTOL and r["cache_rel"] <= MESH_RTOL
                   and c["untouched"] == 0)
@@ -2696,13 +2708,14 @@ def mesh_lm(tm, arch: str, smi: str) -> dict:
                                     for k, v in r["laps"].items())
                         + f" ({smi})")
             out[f"{arch}|{shape}|{mode}"] = r
-    del params
+    del params, param_blocks
     return out
 
 
 def start_production_dryruns() -> dict:
     """``dryrun --mesh pod`` and ``--mesh multipod``, one subprocess an arch
-    and mesh, all started at once: {(mesh, arch): (run, out)}."""
+    and mesh, all started at once, below the rank threads' priority (nice
+    10): {(mesh, arch): (run, out)}."""
     from repro_torch.configs import list_archs
 
     out_dir = ROOT / "build" / "dryrun"
@@ -2711,7 +2724,7 @@ def start_production_dryruns() -> dict:
     for m in MESH_PROD:
         for a in list_archs():
             out = out_dir / f"dryrun_{m}_{a}_torch.json"
-            runs[(m, a)] = (start_dryrun(m, out, a), out)
+            runs[(m, a)] = (start_dryrun(m, out, a, nice=10), out)
     return runs
 
 
