@@ -54,7 +54,23 @@ paths over one ``ProductionSim``:
    fault healed and no ``fused_densify`` launch (the reference densifies
    streamed batches on the host), and prints steps/s, freshness,
    starvation and H2D bytes. Its tensors are then released.
-1c. Cells: the launch layer's 44 (arch x shape) cells at FULL on the
+1c. Entry: the reference's entry points on the port. The five examples
+   run as a user runs them, ``python3 examples_torch/<name>.py`` with
+   ``PYTHONPATH=src``, as subprocesses side by side, each held by the
+   lines it prints: ``train_seqrec`` 60 steps (the loss falls), resumed
+   from its step-50 checkpoint to 70, then FULL DLRM-UIH
+   (``--config full``) 20 steps with its steps/s and peak;
+   ``train_streaming`` (1 history and 1 live day: each example once,
+   every lease released), ``serve_retrieval`` (512 requests, no leaked
+   lease), ``streaming_vs_batch`` (0 feature mismatches, equal scores)
+   and ``quickstart`` (O2O-exact, no leakage). Then the five benchmarks in
+   this process through ``benchmarks_torch.run.run_module``:
+   ``bench_kernels`` and ``bench_device_mat`` at their full configs (each
+   of the four kernels launched by the benchmark that reaches it, counts
+   set to 0 just before each benchmark; ``exact_match`` and byte
+   identity), ``bench_feed``, ``bench_serve`` and ``fig4_ne_scaling``
+   quick. Each ``BenchResult`` line is printed.
+1d. Cells: the launch layer's 44 (arch x shape) cells at FULL on the
    one-card mesh (``launch.mesh.make_test_mesh(1)``): the 20 recsys cells
    and the 24 LM/GNN zoo cells. A dry run starts on the host's CPU, one
    subprocess an arch: ``--mesh one`` reckons each cell's peak, its eager
@@ -69,7 +85,7 @@ paths over one ``ProductionSim``:
    optimizer step for train cells, N scores for retrieval cells, a call no
    faster than its floor; ms a call, the step's peak beside the reckoned
    one, ``model_flops``, MFU, the floor and the eager traffic.
-1d. Zoo: the five LMs (Qwen3-4B and -8B, Granite-8B, Qwen3-30B-A3B,
+1e. Zoo: the five LMs (Qwen3-4B and -8B, Granite-8B, Qwen3-30B-A3B,
    DeepSeek-V2-Lite) served at FULL width and depth in bf16, weights drawn
    on the card leaf by leaf: ``prefill`` of 4 prompts of 2048 tokens, the
    cache padded to 2080 positions, 32 greedy ``decode_step``s, and the
@@ -77,7 +93,7 @@ paths over one ``ProductionSim``:
    Qwen3-4B (12 of 36 layers) and DeepSeek-V2-Lite (3 of 27: MLA and MoE
    backward) trained 5 AdamW steps at FULL width, seq 4096, batch 1. Each
    model's tensors are released before the next.
-1e. Mesh: the same five LMs at FULL width, cut to 2 layers, serve their
+1f. Mesh: the same five LMs at FULL width, cut to 2 layers, serve their
    ``prefill_32k`` (batch 2, seq cut to 4096), ``decode_32k`` (batch 2,
    the full 32,768-position cache, one step) and ``long_500k`` (batch 1,
    the full 524,288-position cache over all ranks, one step) cells as the
@@ -112,7 +128,8 @@ paths over one ``ProductionSim``:
 Each phase prints one line and raises on failure; nothing falls back to the
 CPU. The line before the last is the card's name and power limit, the line
 before that a JSON object with one entry per kernel (launches on the main
-path, error against the plain version, times and bound), and the last line
+path, the entry points that launched it, error against the plain version,
+times and bound), and the last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
 """
@@ -1858,6 +1875,172 @@ def stream_phase(smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the entry phase (after the stream phase): the reference's entry points
+# on the port
+# ---------------------------------------------------------------------------
+
+ENTRY_TIMEOUT_S = 300.0    # a guard on each example's process
+ENTRY_FULL = ("--config", "full", "--steps", "20")   # < 50: no 18 GB checkpoint
+ENTRY_STREAM = ("--history-days", "1", "--live-days", "1",
+                "--max-wall-s", "60")
+ENTRY_REQUESTS = 512
+ENTRY_LINES = {            # lines an example must print (each a prefix)
+    "serve_retrieval": ("no leaked leases: True",),
+    "streaming_vs_batch": ("batch replay vs streaming: 0 feature "
+                           "mismatches",),
+    "quickstart": ("  O2O-exact vs inference state: True",
+                   "  future leakage events:       0"),
+}
+# (module, quick): bench_kernels and bench_device_mat at their full configs
+ENTRY_BENCHES = (("bench_kernels", False), ("bench_device_mat", False),
+                 ("bench_feed", True), ("bench_serve", True),
+                 ("fig4_ne_scaling", True))
+# the kernels each benchmark must launch on the card
+ENTRY_KERNELS = {"bench_kernels": ("delta_decode", "jagged_to_padded",
+                                   "embedding_bag"),
+                 "bench_device_mat": ("fused_densify",)}
+
+
+def run_example(name: str, *args: str) -> list:
+    """``python3 examples_torch/<name>.py <args> --device <DEVICE>`` from
+    the checkout with ``PYTHONPATH=src``, as a user runs it: its stdout
+    lines and seconds. Raises on a non-zero exit or past
+    ``ENTRY_TIMEOUT_S`` (the process is killed)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+           *args]
+    if name != "quickstart":          # host-only: it takes no --device
+        cmd += ["--device", DEVICE]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=ENTRY_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"{' '.join(cmd[1:])} exited {out.returncode}:\n"
+            f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout.splitlines(), seconds
+
+
+def line_with(lines: list, start: str, what: str) -> str:
+    got = [ln for ln in lines if ln.startswith(start)]
+    require(bool(got), f"{what}: no line starting {start!r} in:\n"
+                       + "\n".join(lines[-20:]))
+    return got[-1]
+
+
+def seqrec_chain(ckpt: str) -> list:
+    """``train_seqrec``: 60 steps (the loss falls from the first 10 to
+    the last 10), then ``--resume --steps 70`` from the step-50
+    checkpoint, then FULL DLRM-UIH for 20 steps: [(what, lines, s)]."""
+    runs = []
+    lines, s = run_example("train_seqrec", "--steps", "60", "--ckpt-dir", ckpt)
+    first, last = map(float, line_with(lines, "loss ", "train_seqrec")
+                      .split()[1::2])
+    require(last < first, f"train_seqrec: loss {first} -> {last} did not fall")
+    line_with(lines, "trained 60 steps", "train_seqrec")
+    runs.append(("train_seqrec --steps 60", lines, s))
+    lines, s = run_example("train_seqrec", "--steps", "70", "--ckpt-dir", ckpt,
+                           "--resume")
+    line_with(lines, "resumed from step 50", "train_seqrec --resume")
+    line_with(lines, "trained 70 steps", "train_seqrec --resume")
+    runs.append(("train_seqrec --resume --steps 70", lines, s))
+    lines, s = run_example("train_seqrec", *ENTRY_FULL, "--ckpt-dir", ckpt)
+    line_with(lines, f"trained {ENTRY_FULL[-1]} steps", "train_seqrec full")
+    runs.append((f"train_seqrec {' '.join(ENTRY_FULL)}", lines, s))
+    return runs
+
+
+def check_streaming(lines: list) -> None:
+    """Every example of the range trained once, every lease released."""
+    handoff = line_with(lines, "catch-up handoff:", "train_streaming")
+    done, total = handoff.split("-> ")[1].split()[0].split("/")
+    require(done == total, f"train_streaming: {handoff}")
+    gens = line_with(lines, "generations:", "train_streaming").split()
+    acquired = gens[gens.index("leases") + 1]
+    released = gens[gens.index("acquired") + 2]
+    require(acquired == released, f"train_streaming: leases {acquired} "
+                                  f"acquired, {released} released")
+    line_with(lines, "freshness:", "train_streaming")
+
+
+def entry_benchmarks(smi: str) -> dict:
+    """The five benchmarks in this process through
+    ``benchmarks_torch.run.run_module`` on ``DEVICE``, each with the four
+    kernels' counts set to 0 just before it and read just after:
+    {module: {kernel: launches}}."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmarks_torch.run import run_module
+    from repro_torch.kernels.delta_decode import ops as dd
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.fused import ops
+    from repro_torch.kernels.jagged import ops as jg
+
+    wrappers = {"fused_densify": ops.fused_densify,
+                "embedding_bag": eb.embedding_bag,
+                "jagged_to_padded": jg.jagged_to_padded,
+                "delta_decode": dd.delta_decode}
+    counts = {}
+    for name, quick in ENTRY_BENCHES:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        results = run_module(f"benchmarks_torch.{name}", quick=quick,
+                             device=DEVICE)
+        seconds = time.perf_counter() - t0
+        counts[name] = {k: w.launches for k, w in wrappers.items()}
+        for r in results:
+            say("entry", f"{r.csv()} ({smi})")
+        say("entry", f"benchmarks_torch.{name} ("
+                     + ("quick" if quick else "full config")
+                     + f") in {seconds:.3f} s; launches {counts[name]}")
+        for kernel in ENTRY_KERNELS.get(name, ()):
+            require(counts[name][kernel] > 0,
+                    f"{name}: {kernel} was not launched")
+        if name == "bench_kernels":
+            exact = [r.derived["exact_match"] for r in results
+                     if "exact_match" in r.derived]
+            require(exact == [True], f"bench_kernels: exact_match {exact}")
+    return counts
+
+
+def entry_phase(smi: str) -> dict:
+    """The five examples as subprocesses on the card, as a user runs them
+    (``train_seqrec`` 60 steps, resumed to 70, then FULL for 20;
+    ``train_streaming``, ``serve_retrieval``, ``streaming_vs_batch`` and
+    ``quickstart`` beside it), each held by the lines it prints; then the
+    five benchmarks in this process, each with the kernels it reaches
+    launched. Returns {benchmark: {kernel: launches}}."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt, ThreadPoolExecutor(5) as pool:
+        chain = pool.submit(seqrec_chain, ckpt)
+        others = {
+            "train_streaming": pool.submit(run_example, "train_streaming",
+                                           *ENTRY_STREAM),
+            "serve_retrieval": pool.submit(run_example, "serve_retrieval",
+                                           "--requests", str(ENTRY_REQUESTS)),
+            "streaming_vs_batch": pool.submit(run_example,
+                                              "streaming_vs_batch"),
+            "quickstart": pool.submit(run_example, "quickstart"),
+        }
+        runs = [(name, *f.result()) for name, f in others.items()]
+        runs += chain.result()
+    for what, lines, seconds in runs:
+        if what == "train_streaming":
+            check_streaming(lines)
+        for want in ENTRY_LINES.get(what, ()):
+            line_with(lines, want, what)
+        shown = [ln for ln in lines if ln and not ln.startswith("step ")]
+        say("entry", f"examples_torch/{what} exited 0 in {seconds:.3f} s: "
+                     + " | ".join(shown[-6:]) + f" ({smi})")
+    say("entry", f"5 examples in {time.perf_counter() - t0:.3f} s ({smi})")
+    return entry_benchmarks(smi)
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the launch layer's (arch x shape) cells on the card
 # ---------------------------------------------------------------------------
 
@@ -2654,11 +2837,11 @@ def mesh_cell(tm, spec, shape: str, cfg, params, param_blocks: dict
             "cache": sums}
 
 
-def mesh_lm(tm, arch: str, smi: str) -> dict:
-    """FULL ``arch`` cut to ``MESH_LAYERS`` layers, bf16 weights drawn on
-    the card, its three serving cells on the rank-thread mesh in float32
-    compute over the bf16 weights at a capacity no MoE pair exceeds (held
-    to ``MESH_RTOL``) and in the cell's own bf16 (reported)."""
+def mesh_model(arch: str) -> tuple:
+    """FULL ``arch`` cut to ``MESH_LAYERS`` layers with the mesh cells'
+    shapes: (spec, {mode: config}, bf16 weights drawn on the card). The
+    float32 mode computes in float32 over the bf16 weights at a capacity
+    no MoE pair exceeds; the bf16 mode is the cell's own."""
     import dataclasses
 
     import torch
@@ -2678,9 +2861,18 @@ def mesh_lm(tm, arch: str, smi: str) -> dict:
     with torch.no_grad():
         params = tree_map(lambda p: p.detach(), T.init(
             full, seed=SEED, device=DEVICE, dtype=torch.bfloat16))
+    return spec, {"float32": f32, "bf16": full}, params
+
+
+def mesh_lm(tm, arch: str, smi: str) -> dict:
+    """FULL ``arch`` cut to ``MESH_LAYERS`` layers, bf16 weights drawn on
+    the card, its three serving cells on the rank-thread mesh in float32
+    compute over the bf16 weights at a capacity no MoE pair exceeds (held
+    to ``MESH_RTOL``) and in the cell's own bf16 (reported)."""
+    spec, modes, params = mesh_model(arch)
     out, param_blocks = {}, {}
     for shape in MESH_CELLS:
-        for mode, cfg in (("float32", f32), ("bf16", full)):
+        for mode, cfg in modes.items():
             r = mesh_cell(tm, spec, shape, cfg, params, param_blocks)
             c = r["cache"]
             ok = (r["logits_rel"] <= MESH_RTOL and r["cache_rel"] <= MESH_RTOL
@@ -2710,6 +2902,61 @@ def mesh_lm(tm, arch: str, smi: str) -> dict:
             out[f"{arch}|{shape}|{mode}"] = r
     del params, param_blocks
     return out
+
+
+def mesh_reuse_probe(arch: str = "qwen3-moe-30b-a3b",
+                     shape: str = "long_500k", repeats: int = 2) -> dict:
+    """Whether reusing a rank's parameter blocks across cells
+    (``mesh_lm``'s ``param_blocks``) moves the bf16 ``shape`` cell of
+    ``arch`` on the ``mesh`` phase's mesh. The cell runs three ways, each
+    printed with its logits error and argmax against one rank:
+
+    * ``reused``: deterministic kernels on both sides, the blocks cut by
+      the cells ``mesh_lm`` runs before it (their blocks compared, after
+      them, leaf by leaf with blocks cut afresh);
+    * ``per cell``: deterministic kernels, blocks cut for the cell alone;
+    * ``per cell, nondeterministic``: blocks cut for the cell alone,
+      atomics as in the phase, ``repeats`` times.
+
+    Run alone on the card: ``python3 -c "import sys; sys.path[:0] =
+    ['src', '.']; import chip_smoke as c; c.mesh_reuse_probe()"``."""
+    import torch
+
+    from repro_torch.launch.threaded import ThreadedMesh
+    from repro_torch.tree import tree_leaves
+
+    smi = smi_line() if DEVICE == "cuda" else "cpu"
+    spec, modes, params = mesh_model(arch)
+    runs = {}
+
+    def probe(name, blocks, det):
+        with deterministic() if det else contextlib.nullcontext():
+            r = mesh_cell(tm, spec, shape, modes["bf16"], params, blocks)
+        runs[name] = r
+        say("probe", f"{arch}|{shape} bf16, {name}: logits vs one rank, "
+                     f"relative Frobenius {r['logits_rel']:.3e}, argmax "
+                     f"{r['argmax']:.3f}; cache relative "
+                     f"{r['cache_rel']:.3e} ({smi})")
+
+    with ThreadedMesh(MESH_SHAPE, device_type=DEVICE) as tm:
+        reused = {}
+        order = [(s, mode) for s in MESH_CELLS for mode in modes]
+        with deterministic():
+            for s, mode in order[:order.index((shape, "bf16"))]:
+                mesh_cell(tm, spec, s, modes[mode], params, reused)
+        probe("reused", reused, True)
+        fresh = {}
+        probe("per cell", fresh, True)
+        same = [bool(all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(reused[k]), tree_leaves(fresh[k]))))
+                for k in fresh]
+        say("probe", f"{sum(same)} of {len(same)} ranks' reused blocks "
+                     f"equal to blocks cut afresh, leaf by leaf")
+        for i in range(repeats):
+            probe(f"per cell, nondeterministic #{i + 1}", {}, False)
+    runs["blocks_equal"] = same
+    del params
+    return runs
 
 
 def start_production_dryruns() -> dict:
@@ -3462,6 +3709,10 @@ def main() -> int:
     say("stream", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     release("stream phase")
     t0 = time.perf_counter()
+    entry = entry_phase(smi)
+    say("entry", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
+    release("entry")
+    t0 = time.perf_counter()
     densify["more"]["cells_feed_launches"] = cells_phase(sim, smi)
     say("cells", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     release("cells")
@@ -3479,6 +3730,10 @@ def main() -> int:
     histories = serve_phase(sim, params)
     late = late_materialize_phase(histories, table)
     bag["launches"] = late["embedding_bag"]
+    for e in (densify, bag, jagged, delta):
+        e.setdefault("more", {})["entry_points"] = {
+            f"benchmarks_torch.{b}": n[e["name"]] for b, n in entry.items()
+            if n[e["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")

@@ -132,27 +132,38 @@ def test_slice_loss_trajectory_matches_reference():
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():
-    """Every repro_torch module and chip_smoke.py import with ``jax`` and
-    ``repro`` blocked in ``sys.modules``."""
+    """Every repro_torch module, every example under ``examples_torch/``,
+    every module of ``benchmarks_torch`` and chip_smoke.py import with
+    ``jax`` and ``repro`` blocked in ``sys.modules``."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util, pathlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
-        "import repro_torch\n"
+        "import repro_torch, benchmarks_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
-        "for n in names:\n"
+        "benches = ['benchmarks_torch'] + [m.name for m in\n"
+        "    pkgutil.walk_packages(benchmarks_torch.__path__,\n"
+        "                          'benchmarks_torch.')]\n"
+        "for n in names + benches:\n"
         "    importlib.import_module(n)\n"
+        "examples = sorted(pathlib.Path('examples_torch').glob('*.py'))\n"
+        "for path in examples:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        'examples_torch_' + path.stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "import chip_smoke\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'repro')\n"
         "            and sys.modules[m] is not None]\n"
-        "print(len(names))\n")
+        "print(len(names), len(examples), len(benches))\n")
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO}")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40
+    n_port, n_examples, n_benches = map(int, out.stdout.split()[-3:])
+    assert n_examples == 5 and n_benches == 8
+    assert n_port + n_examples + n_benches >= 54
 
 
 def test_device_prep_matches_the_reference_transforms():
