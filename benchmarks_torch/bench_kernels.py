@@ -8,8 +8,9 @@ entry points on ``device``: the CUDA kernels on a card (``delta_decode``,
 ``launches``), their plain versions on the CPU, whose wall times are not
 device times. ``exact_match`` holds ``delta_decode`` against its plain
 version, as the reference holds its Pallas kernel against the jnp oracle;
-``jagged_to_padded`` must equal its plain version too (checked, not
-reported)."""
+``jagged_to_padded`` must equal its plain version too, and
+``embedding_bag`` match its plain version within float32 rtol 1e-5, atol
+1e-6 (checked, not reported: either raises)."""
 from __future__ import annotations
 
 from typing import List
@@ -88,6 +89,12 @@ def run(quick: bool = False, device: str = "cuda") -> List[BenchResult]:
     ids = torch.as_tensor(rng.integers(0, 4096, (bags, bag_len)),
                           dtype=torch.int32, device=dev)
     mask = torch.ones((bags, bag_len), dtype=torch.bool, device=dev)
+    # float32 sums in another order than the plain version's
+    if not torch.allclose(eb_ops.embedding_bag(table, ids, mask),
+                          eb_ops.embedding_bag_ref(table, ids, mask),
+                          rtol=1e-5, atol=1e-6):
+        raise AssertionError("embedding_bag differs from its plain version "
+                             "beyond rtol 1e-5, atol 1e-6")
     t_e = timeit(lambda: eb_ops.embedding_bag(table, ids, mask), device=dev)
     out.append(BenchResult("kernel/embedding_bag", t_e,
                            {"bags": bags, "bag_len": bag_len, "d": 128}))

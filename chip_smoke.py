@@ -1963,11 +1963,29 @@ def check_streaming(lines: list) -> None:
     line_with(lines, "freshness:", "train_streaming")
 
 
+def host_pinned() -> tuple:
+    """The pinned host allocator's blocks created so far, the CUDA time it
+    spent creating them (ms) and the bytes it holds; zeros where the build
+    of torch keeps no such counts."""
+    import torch
+
+    st = (torch.cuda.host_memory_stats()
+          if DEVICE == "cuda" and hasattr(torch.cuda, "host_memory_stats")
+          else {})
+    return (st.get("num_host_alloc", 0),
+            st.get("host_alloc_time.total", 0) / 1e3,
+            st.get("allocated_bytes.current", 0))
+
+
 def entry_benchmarks(smi: str) -> dict:
     """The five benchmarks in this process through
     ``benchmarks_torch.run.run_module`` on ``DEVICE``, each with the four
     kernels' counts set to 0 just before it and read just after:
-    {module: {kernel: launches}}."""
+    {module: {kernel: launches}}. Each benchmark's line also gives what its
+    host copies depend on: the pinned blocks it made the host allocator
+    create, and the other threads alive in this process."""
+    import threading
+
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     from benchmarks_torch.run import run_module
@@ -1981,19 +1999,27 @@ def entry_benchmarks(smi: str) -> dict:
                 "jagged_to_padded": jg.jagged_to_padded,
                 "delta_decode": dd.delta_decode}
     counts = {}
+    others = sorted(t.name for t in threading.enumerate()
+                    if t is not threading.current_thread())
+    say("entry", f"{len(others)} other threads alive: "
+                 + (", ".join(others) or "none"))
     for name, quick in ENTRY_BENCHES:
         for w in wrappers.values():
             w.launches = 0
+        blocks, alloc_ms, _ = host_pinned()
         t0 = time.perf_counter()
         results = run_module(f"benchmarks_torch.{name}", quick=quick,
                              device=DEVICE)
         seconds = time.perf_counter() - t0
         counts[name] = {k: w.launches for k, w in wrappers.items()}
+        blocks2, alloc_ms2, pool = host_pinned()
         for r in results:
             say("entry", f"{r.csv()} ({smi})")
         say("entry", f"benchmarks_torch.{name} ("
                      + ("quick" if quick else "full config")
-                     + f") in {seconds:.3f} s; launches {counts[name]}")
+                     + f") in {seconds:.3f} s; launches {counts[name]}; "
+                     f"pinned host blocks created {blocks2 - blocks} in "
+                     f"{alloc_ms2 - alloc_ms:.3f} ms, pool {pool} B")
         for kernel in ENTRY_KERNELS.get(name, ()):
             require(counts[name][kernel] > 0,
                     f"{name}: {kernel} was not launched")
@@ -2837,11 +2863,11 @@ def mesh_cell(tm, spec, shape: str, cfg, params, param_blocks: dict
             "cache": sums}
 
 
-def mesh_model(arch: str) -> tuple:
-    """FULL ``arch`` cut to ``MESH_LAYERS`` layers with the mesh cells'
-    shapes: (spec, {mode: config}, bf16 weights drawn on the card). The
-    float32 mode computes in float32 over the bf16 weights at a capacity
-    no MoE pair exceeds; the bf16 mode is the cell's own."""
+def mesh_lm(tm, arch: str, smi: str) -> dict:
+    """FULL ``arch`` cut to ``MESH_LAYERS`` layers, bf16 weights drawn on
+    the card, its three serving cells on the rank-thread mesh in float32
+    compute over the bf16 weights at a capacity no MoE pair exceeds (held
+    to ``MESH_RTOL``) and in the cell's own bf16 (reported)."""
     import dataclasses
 
     import torch
@@ -2861,18 +2887,9 @@ def mesh_model(arch: str) -> tuple:
     with torch.no_grad():
         params = tree_map(lambda p: p.detach(), T.init(
             full, seed=SEED, device=DEVICE, dtype=torch.bfloat16))
-    return spec, {"float32": f32, "bf16": full}, params
-
-
-def mesh_lm(tm, arch: str, smi: str) -> dict:
-    """FULL ``arch`` cut to ``MESH_LAYERS`` layers, bf16 weights drawn on
-    the card, its three serving cells on the rank-thread mesh in float32
-    compute over the bf16 weights at a capacity no MoE pair exceeds (held
-    to ``MESH_RTOL``) and in the cell's own bf16 (reported)."""
-    spec, modes, params = mesh_model(arch)
     out, param_blocks = {}, {}
     for shape in MESH_CELLS:
-        for mode, cfg in modes.items():
+        for mode, cfg in (("float32", f32), ("bf16", full)):
             r = mesh_cell(tm, spec, shape, cfg, params, param_blocks)
             c = r["cache"]
             ok = (r["logits_rel"] <= MESH_RTOL and r["cache_rel"] <= MESH_RTOL
@@ -2902,61 +2919,6 @@ def mesh_lm(tm, arch: str, smi: str) -> dict:
             out[f"{arch}|{shape}|{mode}"] = r
     del params, param_blocks
     return out
-
-
-def mesh_reuse_probe(arch: str = "qwen3-moe-30b-a3b",
-                     shape: str = "long_500k", repeats: int = 2) -> dict:
-    """Whether reusing a rank's parameter blocks across cells
-    (``mesh_lm``'s ``param_blocks``) moves the bf16 ``shape`` cell of
-    ``arch`` on the ``mesh`` phase's mesh. The cell runs three ways, each
-    printed with its logits error and argmax against one rank:
-
-    * ``reused``: deterministic kernels on both sides, the blocks cut by
-      the cells ``mesh_lm`` runs before it (their blocks compared, after
-      them, leaf by leaf with blocks cut afresh);
-    * ``per cell``: deterministic kernels, blocks cut for the cell alone;
-    * ``per cell, nondeterministic``: blocks cut for the cell alone,
-      atomics as in the phase, ``repeats`` times.
-
-    Run alone on the card: ``python3 -c "import sys; sys.path[:0] =
-    ['src', '.']; import chip_smoke as c; c.mesh_reuse_probe()"``."""
-    import torch
-
-    from repro_torch.launch.threaded import ThreadedMesh
-    from repro_torch.tree import tree_leaves
-
-    smi = smi_line() if DEVICE == "cuda" else "cpu"
-    spec, modes, params = mesh_model(arch)
-    runs = {}
-
-    def probe(name, blocks, det):
-        with deterministic() if det else contextlib.nullcontext():
-            r = mesh_cell(tm, spec, shape, modes["bf16"], params, blocks)
-        runs[name] = r
-        say("probe", f"{arch}|{shape} bf16, {name}: logits vs one rank, "
-                     f"relative Frobenius {r['logits_rel']:.3e}, argmax "
-                     f"{r['argmax']:.3f}; cache relative "
-                     f"{r['cache_rel']:.3e} ({smi})")
-
-    with ThreadedMesh(MESH_SHAPE, device_type=DEVICE) as tm:
-        reused = {}
-        order = [(s, mode) for s in MESH_CELLS for mode in modes]
-        with deterministic():
-            for s, mode in order[:order.index((shape, "bf16"))]:
-                mesh_cell(tm, spec, s, modes[mode], params, reused)
-        probe("reused", reused, True)
-        fresh = {}
-        probe("per cell", fresh, True)
-        same = [bool(all(torch.equal(a, b) for a, b in zip(
-                    tree_leaves(reused[k]), tree_leaves(fresh[k]))))
-                for k in fresh]
-        say("probe", f"{sum(same)} of {len(same)} ranks' reused blocks "
-                     f"equal to blocks cut afresh, leaf by leaf")
-        for i in range(repeats):
-            probe(f"per cell, nondeterministic #{i + 1}", {}, False)
-    runs["blocks_equal"] = same
-    del params
-    return runs
 
 
 def start_production_dryruns() -> dict:

@@ -16,8 +16,9 @@ example`` is the reference's CPU-sized model; ``--config full`` is
 ``repro_torch.configs.dlrm_uih.FULL`` (1,536,883,841 float32 parameters at
 seq_len 2048), the same driver at the paper's width. Its sequence length
 sets the feed's. A FULL checkpoint is ~18 GB: run it with fewer than 50
-steps to write none. On a card the run ends with the device's name and its
-peak allocated bytes.
+steps to write none. On a card the run ends with the device's name, the
+rate of its steps after the first two (their set-up excluded) and its peak
+allocated bytes.
 
 The model prep runs on the host (as the reference's ``prep_fn``), which
 turns device materialization off; with prefetch the ``DevicePrefetcher``
@@ -142,6 +143,15 @@ def train(args: argparse.Namespace, cfg: R.DLRMUIHConfig, params,
                       log_every=20))
     if args.resume and trainer.try_resume():
         print(f"resumed from step {trainer.step}")
+    ends = []                  # each step's end: the steady-state rate
+    run_step = trainer.run_step
+
+    def timed_step(batch):
+        out = run_step(batch)  # float() of the loss waits for the device
+        ends.append(time.perf_counter())
+        return out
+
+    trainer.run_step = timed_step
 
     # ONE declarative call replaces the old hand-wired client/pool/prefetcher
     prefetch = not args.no_prefetch
@@ -169,10 +179,13 @@ def train(args: argparse.Namespace, cfg: R.DLRMUIHConfig, params,
     print(f"featurize {ws.featurize_time_s*1e3:.0f}ms over "
           f"{ws.examples} examples ({ws.base_batches} base batches)")
     if device.type == "cuda":
+        steady = (f"; steps 3-{len(ends)} of this run "
+                  f"{(len(ends) - 2) / (ends[-1] - ends[1]):.3f} steps/s"
+                  if len(ends) > 3 else "")
         print(f"device: {torch.cuda.get_device_name(device)}, "
               f"{len(trainer.history)} steps in this run, "
-              f"{trainer.step - len(trainer.history)} before it; peak "
-              f"{torch.cuda.max_memory_allocated(device)} B allocated")
+              f"{trainer.step - len(trainer.history)} before it{steady}; "
+              f"peak {torch.cuda.max_memory_allocated(device)} B allocated")
     return trainer
 
 
