@@ -1963,29 +1963,11 @@ def check_streaming(lines: list) -> None:
     line_with(lines, "freshness:", "train_streaming")
 
 
-def host_pinned() -> tuple:
-    """The pinned host allocator's blocks created so far, the CUDA time it
-    spent creating them (ms) and the bytes it holds; zeros where the build
-    of torch keeps no such counts."""
-    import torch
-
-    st = (torch.cuda.host_memory_stats()
-          if DEVICE == "cuda" and hasattr(torch.cuda, "host_memory_stats")
-          else {})
-    return (st.get("num_host_alloc", 0),
-            st.get("host_alloc_time.total", 0) / 1e3,
-            st.get("allocated_bytes.current", 0))
-
-
 def entry_benchmarks(smi: str) -> dict:
     """The five benchmarks in this process through
     ``benchmarks_torch.run.run_module`` on ``DEVICE``, each with the four
     kernels' counts set to 0 just before it and read just after:
-    {module: {kernel: launches}}. Each benchmark's line also gives what its
-    host copies depend on: the pinned blocks it made the host allocator
-    create, and the other threads alive in this process."""
-    import threading
-
+    {module: {kernel: launches}}."""
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     from benchmarks_torch.run import run_module
@@ -1999,27 +1981,19 @@ def entry_benchmarks(smi: str) -> dict:
                 "jagged_to_padded": jg.jagged_to_padded,
                 "delta_decode": dd.delta_decode}
     counts = {}
-    others = sorted(t.name for t in threading.enumerate()
-                    if t is not threading.current_thread())
-    say("entry", f"{len(others)} other threads alive: "
-                 + (", ".join(others) or "none"))
     for name, quick in ENTRY_BENCHES:
         for w in wrappers.values():
             w.launches = 0
-        blocks, alloc_ms, _ = host_pinned()
         t0 = time.perf_counter()
         results = run_module(f"benchmarks_torch.{name}", quick=quick,
                              device=DEVICE)
         seconds = time.perf_counter() - t0
         counts[name] = {k: w.launches for k, w in wrappers.items()}
-        blocks2, alloc_ms2, pool = host_pinned()
         for r in results:
             say("entry", f"{r.csv()} ({smi})")
         say("entry", f"benchmarks_torch.{name} ("
                      + ("quick" if quick else "full config")
-                     + f") in {seconds:.3f} s; launches {counts[name]}; "
-                     f"pinned host blocks created {blocks2 - blocks} in "
-                     f"{alloc_ms2 - alloc_ms:.3f} ms, pool {pool} B")
+                     + f") in {seconds:.3f} s; launches {counts[name]}")
         for kernel in ENTRY_KERNELS.get(name, ()):
             require(counts[name][kernel] > 0,
                     f"{name}: {kernel} was not launched")
