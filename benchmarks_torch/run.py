@@ -1,6 +1,6 @@
-"""Benchmark aggregator for the PyTorch port: the reference's five device
-benchmarks, one module each. Prints ``name,us_per_call,derived`` CSV and
-writes ``benchmarks_torch/results.json``.
+"""Benchmark aggregator for the PyTorch port: the reference's sixteen
+benchmarks, one module each, in the reference's order. Prints
+``name,us_per_call,derived`` CSV and writes ``benchmarks_torch/results.json``.
 
     python -m benchmarks_torch.run [--quick] [--telemetry]
         [--device cpu] [filter]
@@ -9,9 +9,12 @@ Port of ``benchmarks/run.py``. ``--device`` is ``cuda`` unless the caller
 asks for ``cpu``; without a card ``cuda`` is an error, never a fallback.
 ``--quick`` runs every module at a tiny smoke config (the tier-1 suite
 drives it, ``tests/test_torch_benchmarks_quick.py``); quick numbers are
-NOT measurements, and only full unfiltered runs write results.json. The
-other eleven reference benchmarks and ``roofline_report.py`` are not
-ported yet (``ROADMAP.md``).
+NOT measurements, and only full unfiltered runs write results.json. A
+module's ``run`` takes ``device`` only where a port API it calls takes
+one. The eleven host benchmarks (``fig2_cost_wall`` to ``bench_chaos``,
+``bench_feed`` aside) put nothing on the card; of them only ``bench_chaos``
+takes ``device``, for ``open_feed``. ``roofline_report`` renders the dry
+run's tables and is not in ``MODULES``, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,7 +28,18 @@ import traceback
 from pathlib import Path
 
 MODULES = [
+    "benchmarks_torch.fig2_cost_wall",
+    "benchmarks_torch.table1_system_efficiency",
+    "benchmarks_torch.bench_prefetch",
+    "benchmarks_torch.bench_affinity",
+    "benchmarks_torch.bench_scan_plan",
+    "benchmarks_torch.bench_rebatch",
     "benchmarks_torch.bench_feed",
+    "benchmarks_torch.bench_multitenant",
+    "benchmarks_torch.bench_sharded_store",
+    "benchmarks_torch.bench_failover",
+    "benchmarks_torch.bench_streaming",
+    "benchmarks_torch.bench_chaos",
     "benchmarks_torch.bench_serve",
     "benchmarks_torch.bench_kernels",
     "benchmarks_torch.bench_device_mat",

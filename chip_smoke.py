@@ -63,13 +63,20 @@ paths over one ``ProductionSim``:
    ``train_streaming`` (1 history and 1 live day: each example once,
    every lease released), ``serve_retrieval`` (512 requests, no leaked
    lease), ``streaming_vs_batch`` (0 feature mismatches, equal scores)
-   and ``quickstart`` (O2O-exact, no leakage). Then the five benchmarks in
-   this process through ``benchmarks_torch.run.run_module``:
-   ``bench_kernels`` and ``bench_device_mat`` at their full configs (each
-   of the four kernels launched by the benchmark that reaches it, counts
-   set to 0 just before each benchmark; ``exact_match`` and byte
-   identity), ``bench_feed``, ``bench_serve`` and ``fig4_ne_scaling``
-   quick. Each ``BenchResult`` line is printed.
+   and ``quickstart`` (O2O-exact, no leakage). Then the sixteen
+   benchmarks of ``benchmarks_torch.run.MODULES`` in this process, in
+   that order, through ``run_module``, the four kernels' counts set to 0
+   just before each, each launching the kernels it reaches and no other:
+   the eleven host benchmarks (``fig2_cost_wall``,
+   ``table1_system_efficiency``, ``bench_prefetch``, ``bench_affinity``,
+   ``bench_scan_plan``, ``bench_rebatch``, ``bench_multitenant``,
+   ``bench_sharded_store``, ``bench_failover``, ``bench_streaming``,
+   ``bench_chaos``) at their full configs with their own asserts met
+   (byte identity, no lost examples, the pending replay) and no kernel
+   launched; ``bench_kernels`` and ``bench_device_mat`` at their full
+   configs (``exact_match`` and byte identity); ``bench_feed``,
+   ``bench_serve`` and ``fig4_ne_scaling`` quick. Each ``BenchResult``
+   line is printed.
 1d. Cells: the launch layer's 44 (arch x shape) cells at FULL on the
    one-card mesh (``launch.mesh.make_test_mesh(1)``): the 20 recsys cells
    and the 24 LM/GNN zoo cells. A dry run starts on the host's CPU, one
@@ -108,7 +115,9 @@ paths over one ``ProductionSim``:
    write unchanged) and in the cells' own bf16 (reported). Meanwhile the
    production dry runs (16x16 and 2x16x16 fake meshes, one subprocess an
    arch and mesh) must end ok for all 88 cells, each zoo cell's per-chip
-   peak and bound printed.
+   peak and bound printed; ``benchmarks_torch.roofline_report`` then
+   renders their tables for ``pod`` and ``multipod``: one roofline row
+   for each cell, and three hillclimb picks, printed.
 2. Serve: the full-width two-tower retriever
    (``configs/two_tower_retrieval.FULL``, 30.7 GB of float32 parameters, a
    5.1 GB bf16 index over 10,000,384 items) behind ``RetrievalServer``, with
@@ -1891,11 +1900,11 @@ ENTRY_LINES = {            # lines an example must print (each a prefix)
     "quickstart": ("  O2O-exact vs inference state: True",
                    "  future leakage events:       0"),
 }
-# (module, quick): bench_kernels and bench_device_mat at their full configs
-ENTRY_BENCHES = (("bench_kernels", False), ("bench_device_mat", False),
-                 ("bench_feed", True), ("bench_serve", True),
-                 ("fig4_ne_scaling", True))
-# the kernels each benchmark must launch on the card
+# the benchmarks run at --quick; every other module of
+# benchmarks_torch.run.MODULES runs at its full config
+ENTRY_QUICK = ("bench_feed", "bench_serve", "fig4_ne_scaling")
+# the kernels each benchmark must launch on the card; it may launch no
+# other, and the rest (the eleven host benchmarks among them) none
 ENTRY_KERNELS = {"bench_kernels": ("delta_decode", "jagged_to_padded",
                                    "embedding_bag"),
                  "bench_device_mat": ("fused_densify",)}
@@ -1964,13 +1973,13 @@ def check_streaming(lines: list) -> None:
 
 
 def entry_benchmarks(smi: str) -> dict:
-    """The five benchmarks in this process through
-    ``benchmarks_torch.run.run_module`` on ``DEVICE``, each with the four
-    kernels' counts set to 0 just before it and read just after:
+    """The sixteen benchmarks of ``benchmarks_torch.run.MODULES`` in this
+    process, in that order, through ``run_module`` on ``DEVICE``, each with
+    the four kernels' counts set to 0 just before it and read just after:
     {module: {kernel: launches}}."""
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
-    from benchmarks_torch.run import run_module
+    from benchmarks_torch.run import MODULES, run_module
     from repro_torch.kernels.delta_decode import ops as dd
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.fused import ops
@@ -1981,7 +1990,8 @@ def entry_benchmarks(smi: str) -> dict:
                 "jagged_to_padded": jg.jagged_to_padded,
                 "delta_decode": dd.delta_decode}
     counts = {}
-    for name, quick in ENTRY_BENCHES:
+    for name in [m.rsplit(".", 1)[1] for m in MODULES]:
+        quick = name in ENTRY_QUICK
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -1994,9 +2004,9 @@ def entry_benchmarks(smi: str) -> dict:
         say("entry", f"benchmarks_torch.{name} ("
                      + ("quick" if quick else "full config")
                      + f") in {seconds:.3f} s; launches {counts[name]}")
-        for kernel in ENTRY_KERNELS.get(name, ()):
-            require(counts[name][kernel] > 0,
-                    f"{name}: {kernel} was not launched")
+        launched = {k for k, n in counts[name].items() if n}
+        require(launched == set(ENTRY_KERNELS.get(name, ())),
+                f"{name}: launches {counts[name]}")
         if name == "bench_kernels":
             exact = [r.derived["exact_match"] for r in results
                      if "exact_match" in r.derived]
@@ -2009,8 +2019,8 @@ def entry_phase(smi: str) -> dict:
     (``train_seqrec`` 60 steps, resumed to 70, then FULL for 20;
     ``train_streaming``, ``serve_retrieval``, ``streaming_vs_batch`` and
     ``quickstart`` beside it), each held by the lines it prints; then the
-    five benchmarks in this process, each with the kernels it reaches
-    launched. Returns {benchmark: {kernel: launches}}."""
+    sixteen benchmarks in this process, each launching the kernels it
+    reaches and no other. Returns {benchmark: {kernel: launches}}."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2938,6 +2948,37 @@ def finish_production_dryruns(runs: dict, t0: float) -> dict:
     return results
 
 
+def roofline_reports(runs: dict, smi: str) -> dict:
+    """``benchmarks_torch.roofline_report`` over the production dry runs'
+    files, for each mesh: one roofline row for each ``ok`` cell, three
+    hillclimb picks among them. Writes each report beside the files
+    (``build/dryrun/roofline_report_<mesh>.md``), prints the picks and
+    returns {mesh: picks}."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmarks_torch import roofline_report
+
+    picks = {}
+    for m in MESH_PROD:
+        paths = [out for (mm, _), (_, out) in runs.items() if mm == m]
+        ok = [k for k, v in roofline_report.read_results(paths).items()
+              if v.get("ok") and v["mesh"] == m]
+        rows = roofline_report.roofline_table(m, paths).splitlines()[2:]
+        require(len(rows) == len(ok) > 0,
+                f"roofline_report {m}: {len(rows)} rows for {len(ok)} cells")
+        md = paths[0].parent / f"roofline_report_{m}.md"
+        md.write_text(roofline_report.report(m, paths) + "\n")
+        picks[m] = roofline_report.pick_hillclimb(m, paths)
+        named = {f"{cell}|{m}" for cell in picks[m].values()}
+        require(len(picks[m]) == 3 and named <= set(ok),
+                f"roofline_report {m}: picks {picks[m]}")
+        say("mesh", f"roofline_report --mesh {m}: {len(rows)} rows for "
+                    f"{len(ok)} ok cells, written to {md}; hillclimb picks: "
+                    + ", ".join(f"{k} {v}" for k, v in picks[m].items())
+                    + f" ({smi})")
+    return picks
+
+
 def mesh_phase(smi: str) -> dict:
     """The five FULL-width LMs (depth cut) serve their three cells as
     rank-local programs on a (2, 16) mesh of rank threads on the card,
@@ -2966,6 +3007,7 @@ def mesh_phase(smi: str) -> dict:
                 f"{time.perf_counter() - t0:.3f} s; 0 launches of the four "
                 f"kernels (none is on the path) ({smi})")
     out["dryrun"] = finish_production_dryruns(runs, t0)
+    out["hillclimb"] = roofline_reports(runs, smi)
     return out
 
 

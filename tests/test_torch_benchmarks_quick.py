@@ -34,8 +34,73 @@ WRAPPERS = (fu.fused_densify, eb.embedding_bag, jg.jagged_to_padded,
 # reference's byte-count code (test_device_mat_byte_counts_...)
 COMPARED = [n for n in NAMES if n != "bench_device_mat"]
 # {module: {result: derived keys whose values the seeds fix}}; fig4's NE is
-# fixed once both sides train from the same initial parameters
+# fixed once both sides train from the same initial parameters. Keys that
+# come from timing stay out, also where they are counts: rebatch's best
+# base batch, prefetch's waste, failover's breaker opens, failovers and
+# hedged reads (a 50 ms breaker reset and a latency quantile), and
+# streaming's generation flips, pinned windows, lease GCs and stream lag
+# (a churn thread races the session)
+FIG2 = ("fatrow_data_over_gpu", "vlm_data_over_gpu", "fatrow_data_cost",
+        "vlm_data_cost")
+MULTITENANT = ("tenants", "co_bytes", "solo_bytes_sum", "bytes_saved_pct",
+               "co_stripe_decodes", "solo_stripe_decodes",
+               "share_bytes_saved_vs_solo", "share_union_overfetch",
+               "co_scan_windows", "outputs_identical")
 FIXED = {
+    "fig2_cost_wall": {
+        **{f"fig2/seq_{n}": FIG2 for n in (256, 4096, 65_536)},
+        "fig2/fat_row_wall": ("fatrow_wall_seq_len", "paper_wall_approx",
+                              "vlm_wall_seq_len")},
+    "table1_system_efficiency": {
+        "table1/primary_write_bandwidth": ("ours_pct", "paper_pct",
+                                           "vlm_bytes", "fat_bytes"),
+        # the latency is modelled from the byte and scan counters
+        "table1/model_c": ("read_bw_pct", "paper_read_pct",
+                           "lookup_stream_pct_of_baseline_read",
+                           "paper_lookup_stream",
+                           "lookup_batch_pct_of_baseline_read",
+                           "paper_lookup_batch", "latency_delta_pct",
+                           "paper_latency_pct")},
+    "bench_prefetch": {"prefetch/pipelined_throughput": ("paper_pct",)},
+    "bench_affinity": {
+        "affinity/lookup_bandwidth": ("ours_pct", "paper_pct",
+                                      "arrival_bytes", "affine_bytes",
+                                      "arrival_fanout", "affine_fanout"),
+        "affinity/worker_throughput": ("paper_pct",)},
+    "bench_scan_plan": {
+        "scan_plan/io_work": ("per_example_seeks", "planned_seeks",
+                              "per_example_decodes", "planned_decodes",
+                              "dedup_hits", "decode_cache_hits",
+                              "parallel_shards", "fewer_seeks",
+                              "fewer_decodes"),
+        "scan_plan/throughput": ("per_example_bytes", "planned_bytes")},
+    "bench_rebatch": {"rebatch/base_batch_tuning": ("paper_pct",)},
+    "bench_multitenant": {f"multitenant/n{n}_tenants": MULTITENANT
+                          for n in (1, 2, 3)},
+    "bench_sharded_store": {
+        "sharded_store/max_node_load": (
+            "hash_max_mean", "length_aware_max_mean", "hash_stored_max_mean",
+            "length_aware_stored_max_mean", "hash_node_bytes",
+            "length_aware_node_bytes")},
+    "bench_failover": {
+        "failover/throughput_one_node_down": ("r1_down_rows_per_s",
+                                              "r1_down_unavailable_rate"),
+        "failover/hedged_read_tail_latency": ("slow_factor",),
+        # recover() resets the breaker: one scan reaches the primary
+        "failover/recovery_time_to_healthy": ("generations_replayed",
+                                              "rereplicated_bytes",
+                                              "scans_to_healthy")},
+    "bench_streaming": {
+        "streaming_sustained": ("rows", "window_failures"),
+        "streaming_handoff": ("warehouse_examples", "stream_examples",
+                              "duplicates_skipped", "watermark",
+                              "hours_replayed", "empty_hours",
+                              "exactly_once")},
+    "bench_chaos": {
+        "chaos_clean": ("rows",),
+        "chaos_faulty_1pct": ("rows", "faults_injected", "worker_restarts",
+                              "items_requeued"),
+        "chaos_equivalence": ("byte_identical",)},
     "bench_kernels": {
         "codec/encode": ("compression_ratio",),
         "kernel/delta_decode": ("exact_match", "elements"),
@@ -73,9 +138,12 @@ def _quick(name: str):
 def test_modules_list_complete():
     listed = {m.rsplit(".", 1)[1] for m in bench_run.MODULES}
     on_disk = {p.stem for p in (REPO_ROOT / "benchmarks_torch").glob("*.py")
-               if p.stem not in ("run", "common", "__init__")}
+               if p.stem not in ("run", "common", "__init__",
+                                 "roofline_report")}
     assert on_disk == listed, on_disk ^ listed
-    assert listed <= {m.rsplit(".", 1)[1] for m in ref_run.MODULES}
+    assert bench_run.MODULES == [
+        "benchmarks_torch." + m.removeprefix("benchmarks.")
+        for m in ref_run.MODULES]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -220,3 +288,60 @@ def test_run_main_quick_on_the_cpu_writes_no_results(capsys):
     assert any(ln.startswith("kernel/delta_decode,") for ln in out)
     assert (results.stat().st_mtime_ns if results.exists() else None) \
         == before
+
+
+def test_scan_plan_planned_path_is_byte_identical():
+    """``bench_scan_plan``'s two paths over its quick batches: the port's
+    planned ``materialize_batch`` (decode cache on) gives, example for
+    example, the bytes of its per-example ``materialize`` and of the
+    reference's per-example path on the reference's sim of the same seed."""
+    from benchmarks import bench_scan_plan as ref
+    from benchmarks_torch import bench_scan_plan as port
+    from repro.storage import columnar as ref_columnar
+    from repro_torch.storage import columnar
+
+    sims = {}
+    for mod, cols in ((ref, ref_columnar), (port, columnar)):
+        sim = mod.standard_sim("vlm", users=8, days=2, req_per_day=4)
+        sim.immutable.decode_cache = None
+        sims[mod] = (sim, mod._user_bucketed_batches(sim, base=16))
+    (r_sim, r_batches), (p_sim, p_batches) = sims[ref], sims[port]
+    want = [r_sim.materializer(validate_checksum=False).materialize(
+        e, ref.TENANT) for b in r_batches for e in b]
+    p_mat = p_sim.materializer(validate_checksum=False)
+    solo = [p_mat.materialize(e, port.TENANT) for b in p_batches for e in b]
+    p_sim.immutable.decode_cache = columnar.StripeDecodeCache(256)
+    planned = [x for b in p_batches
+               for x in p_sim.materializer(validate_checksum=False)
+               .materialize_batch(b, port.TENANT)]
+    assert len(planned) == len(solo) == len(want) > 0
+    for got in (planned, solo):
+        for g, w in zip(got, want):
+            assert list(g) == list(w)
+            for k in w:
+                assert g[k].dtype == w[k].dtype, k
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_failover_shares_the_sharded_store_population():
+    from benchmarks_torch import bench_failover, bench_sharded_store
+    from benchmarks.bench_sharded_store import _population as ref_population
+
+    assert bench_failover.LATENCY is bench_sharded_store.LATENCY
+    assert bench_failover._population is bench_sharded_store._population
+    got, want = bench_sharded_store._population(6, 20), ref_population(6, 20)
+    assert list(got) == list(want)
+    for uid in want:
+        assert list(got[uid]) == list(want[uid])
+        for k in want[uid]:
+            np.testing.assert_array_equal(got[uid][k], want[uid][k])
+
+
+def test_bench_chaos_refuses_cuda_without_a_card(monkeypatch):
+    import torch
+
+    from benchmarks_torch import bench_chaos
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        bench_chaos.run(quick=True)

@@ -162,7 +162,7 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_port, n_examples, n_benches = map(int, out.stdout.split()[-3:])
-    assert n_examples == 5 and n_benches == 8
+    assert n_examples == 5 and n_benches == 20
     assert n_port + n_examples + n_benches >= 54
 
 
