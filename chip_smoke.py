@@ -118,6 +118,27 @@ paths over one ``ProductionSim``:
    peak and bound printed; ``benchmarks_torch.roofline_report`` then
    renders their tables for ``pod`` and ``multipod``: one roofline row
    for each cell, and three hillclimb picks, printed.
+1g. Mesh train: the train cells' rank-local steps, whose backward crosses
+   ranks, on a (2, 2) ``("data", "model")`` mesh of 4 rank processes that
+   share the card (``launch.procmesh.ProcessMesh``: one CUDA context and
+   autograd engine a rank, collectives through card buffers the ranks
+   map). Each cell at FULL width in float32 compute with TF32 off and
+   deterministic kernels (the MoEs at a capacity no pair exceeds), cut
+   where one card does not hold it (``MESH_TRAIN_CELLS``): its one-rank
+   AdamW steps on the one-card mesh first (their states kept on the card,
+   or in host memory for the cells too large for that), then the same 2
+   steps in the 4 ranks on the same parameters and batches, each rank
+   cutting its blocks (``testing.mesh_train``); the global loss and
+   gradient norm held to 1e-4 relative, every first-moment leaf to 1e-3
+   relative Frobenius, and every parameter leaf to 1e-3 once the elements
+   whose Adam direction flipped on a near-zero gradient (no larger than
+   the ranks' largest gradient difference) are counted apart. DLRM-UIH
+   (batch 32) takes its batches from the cell-placed feed opened in every
+   rank over its own copy of an 8-user sim, so ``fused_densify`` launches
+   in every rank; then the four other ranking tenants' ``train_batch``,
+   the five LMs' ``train_4k`` (2 layers) and three MeshGraphNet shapes at
+   full depth. One line a cell: each step's errors and worst leaves, ms
+   a step (a rank process's, not a per-chip time), each rank's peak.
 2. Serve: the full-width two-tower retriever
    (``configs/two_tower_retrieval.FULL``, 30.7 GB of float32 parameters, a
    5.1 GB bf16 index over 10,000,384 items) behind ``RetrievalServer``, with
@@ -3012,6 +3033,328 @@ def mesh_phase(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: train cells' rank-local steps on a (2, 2) mesh of rank processes
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SHAPE = (2, 2)  # ("data", "model"): 4 rank processes on the card
+MESH_TRAIN_STEPS = 2       # AdamW steps, each held against one rank's
+MESH_TRAIN_LOSS_RTOL = 1e-4   # the global loss and gradient norm, relative
+MESH_TRAIN_RTOL = 1e-3     # each parameter and first-moment leaf, relative
+#                            Frobenius (the mesh phase's limit)
+MESH_TRAIN_TIMEOUT_S = 600.0
+# the card holds about 14x a cell's parameter bytes at once: the 4 ranks'
+# steps (~9x: row-sharded tables and TP weights whole over "data", their
+# gradients, ZeRO moments, AdamW's and the all-gather's temporaries), the
+# shared parameters (1x) and the one-rank states after each step (4x); a
+# cell over CELL_PEAK_LIMIT keeps those states in host memory instead
+MESH_TRAIN_HOLD = 14
+# FULL widths in float32 compute; what each cell cuts to fit 4 rank
+# processes and the one-rank reference on one card (PERF.md section 4)
+MESH_TRAIN_LM = {"n_layers": 2, "batch": 2, "seq_len": 1024}
+MESH_TRAIN_CELLS = (
+    # FULL's 30.7 GB of tables need 123 GB of float32 training state
+    ("two-tower-retrieval", "train_batch",
+     {"batch": 32_768, "item_vocab": 1_000_448, "user_vocab": 2_000_896}),
+    ("dcn-v2", "train_batch", {}),
+    ("dien", "train_batch", {"batch": 32_768}),
+    ("bert4rec", "train_batch", {"batch": 4_096}),
+    *((arch, "train_4k", MESH_TRAIN_LM) for arch in ZOO_LMS),
+    ("meshgraphnet", "full_graph_sm", {}),
+    ("meshgraphnet", "minibatch_lg", {}),
+    ("meshgraphnet", "molecule", {}),
+)
+# MeshGraphNet's first-layer gradient (node_encoder/w0, under 15 blocks)
+# is not resolved to 1e-3 in float32 on the card, where one rank's and 4
+# ranks' float32 gradients of it differ by more than their float64 ones
+# (PERF.md section 6): its cells are held in float64 compute and
+# reported in float32
+MESH_TRAIN_F64 = ("meshgraphnet",)
+MESH_TRAIN_FEED_BATCH = 32     # DLRM-UIH from its placed feed: the main path's
+MESH_TRAIN_LEFT_OUT = (("meshgraphnet", "ogb_products"),)   # > 70 GB reckoned
+
+
+def mesh_train_sim():
+    """(config, days) of the sim DLRM-UIH's placed feed reads: 8 users of
+    ``build_sim``'s, so each rank process builds its own copy quickly (a
+    sim holds locks and is not sent)."""
+    from repro_torch.core import events as ev
+    from repro_torch.core.simulation import SimConfig
+
+    return SimConfig(
+        stream=ev.StreamConfig(n_users=8, n_items=100_000, days=30,
+                               events_per_user_day_mean=80, seed=SEED),
+        stripe_len=256, lookback_ms=24 * ev.MS_PER_DAY, seed=SEED), 29
+
+
+def mesh_train_over(arch: str, reduced: dict, dtype=None) -> dict:
+    """A cell's config overrides: its cuts, the compute dtype (float32 by
+    default) and, for an MoE, a capacity no (token, expert) pair
+    exceeds."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    over = {**reduced, "compute_dtype": dtype or torch.float32}
+    moe = getattr(get_arch(arch).full, "moe", None)
+    if moe is not None:
+        over["capacity_factor"] = moe.n_experts / moe.top_k
+    return over
+
+
+def mesh_train_param_bytes(cell) -> int:
+    """A train cell's parameter bytes, from its argument specs."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.tree import tree_leaves
+
+    return sum(s.nbytes for s in tree_leaves(cell.args_spec[0],
+                                             is_leaf=SH.is_spec))
+
+
+def mesh_train_cell(pm, one, arch: str, shape: str, reduced: dict,
+                    smi: str, host, feed=None, dtype=None,
+                    held: bool = True) -> dict:
+    """``arch``'s ``shape`` cell at FULL width with ``reduced``'s cuts, in
+    ``dtype`` (float32 by default) compute under deterministic kernels
+    (CUDA's atomic adds in scatter and embedding backwards would change
+    the sums from run to run): its one-rank AdamW steps on the one-card
+    mesh ``one``
+    (states kept on the card, or in host memory where ``MESH_TRAIN_HOLD``
+    says they do not fit), then the same steps as the
+    rank-local program of the 4 rank processes of ``pm`` on the same
+    parameters and batches (``feed``: the placed feed's, opened in each
+    rank), held to ``MESH_TRAIN_LOSS_RTOL`` and ``MESH_TRAIN_RTOL`` (or,
+    not ``held``, reported)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sampling import sample_args
+    from repro_torch.testing import mesh_train as MT
+    from repro_torch.tree import tree_map
+
+    spec = get_arch(arch)
+    over = mesh_train_over(arch, reduced, dtype)
+    moe = getattr(spec.full, "moe", None)
+    key = f"{arch}|{shape}"
+    clock = [time.perf_counter()]
+
+    def lap():
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cell = MT.build_train_cell(arch, shape, over, one)
+    args = sample_args(cell, spec.family, seed=SEED, device=DEVICE)
+    params = tree_map(lambda t: t.detach(), args[0])
+    p_bytes = mesh_train_param_bytes(cell)
+    if MESH_TRAIN_HOLD * p_bytes <= CELL_PEAK_LIMIT:
+        host = None            # the states fit the card beside the ranks
+    else:
+        host.reset()
+    if feed is None:
+        batch = args[2]
+        batches = [batch] * MESH_TRAIN_STEPS
+    else:
+        batch = None
+        batches = MT.feed_batches(feed, cell, None, MESH_TRAIN_STEPS, DEVICE)
+    del args          # sample_args' zero moments: reference_steps makes its own
+    torch.cuda.synchronize()
+    laps = {"inputs": lap()}
+    ref = MT.reference_steps(cell, params, batches, host=host,
+                             deterministic=True)
+    one_peak = torch.cuda.max_memory_allocated()
+    del cell, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps["one rank"] = lap()
+    inputs = [params, batch]
+    del params, batch        # freed once the ranks hold their blocks
+    got = MT.train_on_mesh(pm, arch, shape, over, inputs, ref, True, feed)
+    laps["4 ranks"] = lap()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    parts = []
+    worst_all = 0.0
+    for i, want in enumerate(ref):
+        steps = [r["steps"][i] for r in got]
+        loss = max(rel(s["loss"], want["loss"]) for s in steps)
+        norm = max(rel(s["grad_norm"], want["grad_norm"]) for s in steps)
+        require(not held or (loss <= MESH_TRAIN_LOSS_RTOL
+                             and norm <= MESH_TRAIN_LOSS_RTOL),
+                f"mesh_train {key} step {i + 1}: loss {loss:.3e}, gradient "
+                f"norm {norm:.3e} relative to one rank (limit "
+                f"{MESH_TRAIN_LOSS_RTOL})")
+        worst = {}
+        for k in ("params", "params_rest", "m"):
+            rank, leaf = max(((r, n) for r in range(len(steps))
+                              for n in steps[r][k]),
+                             key=lambda rn: steps[rn[0]][k][rn[1]])
+            worst[k] = (leaf, rank, steps[rank][k][leaf])
+            if k != "params" and held:
+                require(worst[k][2] <= MESH_TRAIN_RTOL,
+                        f"mesh_train {key} step {i + 1}: {k} leaf {leaf!r} "
+                        f"of rank {rank} at {worst[k][2]:.3e} relative "
+                        f"Frobenius (limit {MESH_TRAIN_RTOL})")
+                worst_all = max(worst_all, worst[k][2])
+        # parameter elements whose Adam direction moved on a near-zero
+        # gradient (testing.mesh_train.param_err), counted and bounded
+        flips = {}
+        for r, st in enumerate(steps):
+            for leaf, (n, bad, far) in st["explained"].items():
+                require(not held or (bad == 0 and far <= 2.01),
+                        f"mesh_train {key} step {i + 1}: leaf {leaf!r} of "
+                        f"rank {r} has {bad} elements that moved by over "
+                        f"{MT.MOVED} lr where Adam's direction is not "
+                        f"ill-conditioned for the ranks' largest gradient "
+                        f"difference, and moved {far:.3f} x the summed lr "
+                        f"(at most 2)")
+                flips[leaf] = max(flips.get(leaf, 0), n)
+        wl, wr, we = worst["params"]
+        parts.append(
+            f"step {i + 1}: loss {want['loss']:.6f} ({loss:.3e} rel), "
+            f"grad norm {want['grad_norm']:.6f} ({norm:.3e} rel), worst "
+            f"params leaf {wl} (rank {wr}) {we:.3e}, "
+            f"{steps[wr]['params_rest'][wl]:.3e} without its "
+            f"{steps[wr]['explained'].get(wl, (0,))[0]} elements moved on a "
+            f"near-zero gradient (worst without: {worst['params_rest'][0]} "
+            f"{worst['params_rest'][2]:.3e}; such elements a leaf, most "
+            f"on a rank: {flips or 'none'}), worst "
+            f"first-moment leaf {worst['m'][0]} (rank {worst['m'][1]}) "
+            f"{worst['m'][2]:.3e}, {max(s['ms'] for s in steps):.3f} ms "
+            f"(slowest rank)")
+    peaks = [r["peak"] for r in got]
+    launches = {k: [r["launches"][k] for r in got] for k in got[0]["launches"]}
+    say("mesh_train",
+        f"{key} on {MESH_TRAIN_SHAPE}, {pm.world} rank processes, reduced "
+        f"{reduced}" + (", batches from the placed feed" if feed else "")
+        + f" ({over['compute_dtype']} compute, "
+        + ("held" if held else "reported, not held")
+        + ", TF32 off, deterministic kernels"
+        + (f", capacity factor {over['capacity_factor']:g}"
+           if moe is not None else "")
+        + f"; {p_bytes} B of parameters, the one-rank states kept in "
+        + ("device" if host is None else "host") + " memory"
+        + f"): " + "; ".join(parts) + f"; rank peaks {peaks} B, sum "
+        f"{sum(peaks)} B; one rank's peak {one_peak} B; kernel launches a "
+        f"rank {launches}; host seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in laps.items())
+        + " (one rank's steps "
+        + ", ".join(f"{sum(w['seconds'][k] for w in ref):.3f} {k}"
+                    for k in ("step", "keep"))
+        + "; slowest rank's "
+        + ", ".join(f"{max(r['seconds'][k] for r in got):.3f} {k}"
+                    for k in got[0]["seconds"]) + ")"
+        + f" (ranks that share the card: rank-process times, not "
+        f"per-chip ones) ({smi})")
+    return {"peaks": peaks, "one_peak": one_peak,
+            "worst": worst_all if held else 0.0,
+            "launches": launches, "seconds": laps}
+
+
+def reckoned_peak(arch: str, shape: str):
+    """The one-card peak the ``cells`` phase's dry run reckoned for
+    ``arch``'s ``shape`` at FULL, or ``None`` without its file."""
+    path = ROOT / "build" / "dryrun" / f"dryrun_one_{arch}_torch.json"
+    if not path.exists():
+        return None
+    entry = json.loads(path.read_text()).get(f"{arch}|{shape}|one", {})
+    return entry.get("memory", {}).get("peak_bytes_per_chip")
+
+
+def mesh_train_phase(smi: str) -> dict:
+    """The train cells' rank-local steps (collectives inside the backward,
+    ZeRO moments, row-sharded tables, tensor- and expert-parallel LMs, a
+    GNN's edges over every rank) on a (2, 2) mesh of 4 rank processes that
+    share the card (``launch.procmesh.ProcessMesh``), each cell held
+    against its one-rank steps; DLRM-UIH takes its batches from the
+    cell-placed feed, opened in every rank (``fused_densify`` launches
+    there). Returns each cell's readings."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.procmesh import ProcessMesh
+    from repro_torch.testing import mesh_train as MT
+
+    t0 = time.perf_counter()
+    made_group = not dist.is_initialized()
+    one = make_test_mesh(1, DEVICE)
+    out = {}
+    for arch, shape in MESH_TRAIN_LEFT_OUT:
+        peak = reckoned_peak(arch, shape)
+        say("mesh_train", f"{arch}|{shape} left out: reckoned one-card peak "
+                          + (f"{peak} B" if peak else "not read (no dry run "
+                             "file)") + f" >= {CELL_PEAK_LIMIT:.0f} B")
+    cells = [("dlrm-uih", "train_batch", {"batch": MESH_TRAIN_FEED_BATCH})]
+    cells += list(MESH_TRAIN_CELLS)
+    big = max(mesh_train_param_bytes(MT.build_train_cell(
+        a, s, mesh_train_over(a, r), one)) for a, s, r in cells)
+    # each step's parameters and first moments of the largest cell that
+    # keeps them on the host (None: every cell keeps them on the card)
+    host = (MT.HostStates(2 * MESH_TRAIN_STEPS * big)
+            if MESH_TRAIN_HOLD * big > CELL_PEAK_LIMIT else None)
+    say("mesh_train", f"largest cell {big} B of parameters; "
+                      + ("no host memory for one-rank states" if host is None
+                         else f"{host.buf.numel()} B of host memory "
+                              f"page-locked for one-rank states in "
+                              f"{time.perf_counter() - t0:.3f} s"))
+    try:
+        with ProcessMesh(MESH_TRAIN_SHAPE, device_type=DEVICE,
+                         timeout=MESH_TRAIN_TIMEOUT_S) as pm:
+            say("mesh_train", f"{pm.world} rank processes joined the "
+                              f"shared-card group on {DEVICE} in "
+                              f"{time.perf_counter() - t0:.3f} s")
+            mesh_train_cells(pm, one, smi, host, out)
+    finally:
+        if host is not None:
+            host.close()
+    if made_group:
+        dist.destroy_process_group()
+    say("mesh_train", f"{len(out)} runs on {MESH_TRAIN_SHAPE} in "
+                      f"{time.perf_counter() - t0:.3f} s, worst leaf "
+                      f"{max(r['worst'] for r in out.values()):.3e} (limit "
+                      f"{MESH_TRAIN_RTOL}) ({smi})")
+    return out
+
+
+def mesh_train_cells(pm, one, smi: str, host, out: dict) -> None:
+    """``mesh_train_phase``'s cells on ``pm``, in order, into ``out``:
+    DLRM-UIH from its placed feed (``fused_densify`` must launch in every
+    rank), then ``MESH_TRAIN_CELLS``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import SimSource
+
+    sim_cfg, days = mesh_train_sim()
+    spec = dataclasses.replace(
+        feed_spec(), ordered=True, batch_size=MESH_TRAIN_FEED_BATCH,
+        source=SimSource(min_rows=MESH_TRAIN_STEPS * MESH_TRAIN_FEED_BATCH))
+    out["dlrm-uih|train_batch"] = mesh_train_cell(
+        pm, one, "dlrm-uih", "train_batch", {"batch": MESH_TRAIN_FEED_BATCH},
+        smi, host, feed=(sim_cfg, days, spec))
+    release("mesh_train dlrm-uih|train_batch")
+    dens = out["dlrm-uih|train_batch"]["launches"]["fused_densify"]
+    require(all(n > 0 for n in dens),
+            f"mesh_train: fused_densify launches a rank {dens}: the placed "
+            f"feed did not densify in every rank")
+    for arch, shape, reduced in MESH_TRAIN_CELLS:
+        if arch in MESH_TRAIN_F64:
+            out[f"{arch}|{shape}|float32"] = mesh_train_cell(
+                pm, one, arch, shape, reduced, smi, host, held=False)
+            release(f"mesh_train {arch}|{shape} float32")
+            out[f"{arch}|{shape}"] = mesh_train_cell(
+                pm, one, arch, shape, reduced, smi, host,
+                dtype=torch.float64)
+        else:
+            out[f"{arch}|{shape}"] = mesh_train_cell(pm, one, arch, shape,
+                                                     reduced, smi, host)
+        release(f"mesh_train {arch}|{shape}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the model on the card agrees with the CPU on a small input
 # ---------------------------------------------------------------------------
 
@@ -3701,6 +4044,12 @@ def main() -> int:
     mesh_phase(smi)
     say("mesh", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     release("mesh")
+    t0 = time.perf_counter()
+    mesh_train = mesh_train_phase(smi)
+    say("mesh_train", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
+    release("mesh_train")
+    densify["more"]["mesh_train_launches"] = {
+        k: r["launches"]["fused_densify"] for k, r in mesh_train.items()}
 
     params = two_tower_params()
     table = params["item_table"].detach()

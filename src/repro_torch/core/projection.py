@@ -68,6 +68,14 @@ class TenantProjection:
                     {g: tuple(cols)
                      for g, cols in self.traits_per_group.items()}))
 
+    def __reduce__(self):
+        """Pickled by its fields (a read-only proxy does not pickle), so a
+        feed's spec can be sent to a rank process."""
+        tp = self.traits_per_group
+        return (TenantProjection, (self.name, self.seq_len,
+                                   self.feature_groups,
+                                   None if tp is None else dict(tp)))
+
     # dict fields are unhashable; hash the canonical content fingerprint
     # (dataclass __eq__ still compares fields directly, which is consistent:
     # equal projections have equal fingerprints)

@@ -590,7 +590,8 @@ def _sharded_train_step(loss_fn, opt_cfg: AdamWConfig, mesh, pspec, ospec):
             grads = tree_leaves(tree_grads(loss, params))
         views, shards, gathers = [], [], []
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for p, g, ps, ms in zip(leaves, grads, p_specs, m_specs):
+        for i, (p, ps, ms) in enumerate(zip(leaves, p_specs, m_specs)):
+            g, grads[i] = grads[i], None   # freed once its shard is taken
             rest = [a for a in everything if a not in ps.axes()]
             dim, z_axes = _zero_dim(ps, ms)
             view = p
@@ -615,10 +616,15 @@ def _sharded_train_step(loss_fn, opt_cfg: AdamWConfig, mesh, pspec, ospec):
         grad_tree = tree_map(lambda _: next(it_g), params)
         _, opt_state, stats = adamw_update(view_tree, grad_tree, opt_state,
                                            opt_cfg, gnorm=gnorm)
+        del grad_tree, shards          # the gathers below need their memory
         with torch.no_grad():
             for p, view, dim, z_axes in gathers:
-                p.copy_(funcol.all_gather_tensor(
-                    view.contiguous(), dim, axes_group(mesh, z_axes)))
+                # gathered along dim 0 with ``dim`` moved first: no
+                # chunk-and-concatenate copy of the whole parameter
+                whole = funcol.all_gather_tensor(
+                    view.movedim(dim, 0).contiguous(), 0,
+                    axes_group(mesh, z_axes))
+                p.copy_(whole.movedim(0, dim))
         total = funcol.all_reduce(loss.detach(), "sum",
                                   axes_group(mesh, everything))
         return params, opt_state, {"loss": total, **stats}

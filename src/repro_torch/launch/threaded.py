@@ -13,7 +13,8 @@ stream, so a time taken over them is not a per-chip time.
 
 Forward-only programs: autograd runs a CUDA backward on one device thread
 that every rank thread shares, so a backward with a collective in it would
-wait on ranks queued behind it.
+wait on ranks queued behind it. A program with a backward (a train cell's
+step) runs on ``launch.procmesh.ProcessMesh``, whose ranks are processes.
 
 Nothing here touches a process group when the module is imported.
 """

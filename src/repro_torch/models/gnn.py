@@ -99,11 +99,12 @@ def init(cfg: MeshGraphNetConfig, seed: int = 0, device="cuda"):
 
 
 def _ln(x: torch.Tensor, w: torch.Tensor, eps=1e-6) -> torch.Tensor:
+    """LayerNorm in float32 at least (a float64 state stays float64)."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(dt, torch.float32))
     mu = torch.mean(x32, -1, keepdim=True)
     var = torch.var(x32, -1, keepdim=True, unbiased=False)
-    return ((x32 - mu) * torch.rsqrt(var + eps) * w.float()).to(dt)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * w.to(x32.dtype)).to(dt)
 
 
 def _block(cfg: MeshGraphNetConfig, senders, receivers, edge_mask, h, e, bp,
