@@ -25,6 +25,7 @@ from repro_torch.kernels.fused.ops import (
     ts_delta_encode,
     unpack_dense,
 )
+from repro_torch.obs.spans import current_phases
 
 HostBatch = Dict[str, np.ndarray]
 
@@ -81,15 +82,35 @@ def densify_host(batch: HostBatch) -> HostBatch:
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """One host array onto ``device``: on CUDA a pinned staging copy and a
     non-blocking H2D copy on the current stream (the caller orders the
-    consumer after it); on the CPU the array itself, aliased."""
+    consumer after it); on the CPU the array itself, aliased.
+
+    With a transfer thread's ``PhaseClock`` parked (``obs.spans.
+    current_phases``, telemetry on), the host work since its last lap, the
+    staging included, closes an ``h2d.stage`` phase, and the copy's dispatch
+    an ``h2d.launch`` phase that carries the copy's device ms (``copy``)."""
     t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    cuda = device.type == "cuda"
+    ph = current_phases()
+    if ph is None:
+        return t.pin_memory().to(device, non_blocking=True) if cuda else t
+    if cuda:
+        t = t.pin_memory()
+    ph.lap("h2d.stage")
+    ph.mark()
+    if cuda:
+        t = t.to(device, non_blocking=True)
+    ph.mark("copy")
+    ph.lap("h2d.launch")
+    return t
 
 
 class DeviceMaterializer:
     """Upload a compact jagged payload + run the fused kernel on the card.
+
+    Each array is staged and its copy issued in turn (``to_device``), so a
+    copy runs while the next array is packed; with telemetry on, each
+    kernel's dispatch closes an ``h2d.launch`` phase carrying the kernel's
+    and the unpack's device ms (``densify``).
 
     Stateless per batch except ``last_h2d_bytes`` (read by the prefetcher
     right after each call for the ``ClientStats.h2d_bytes`` counter). Runs on
@@ -129,7 +150,13 @@ class DeviceMaterializer:
         dense, ts = fused_densify(self._put(arena),
                                   self._put(offs.astype(np.int32)),
                                   seq_len, ts_bases=ts_bases, ts_col=ts_col)
-        return unpack_dense(dense, metas, ts, ts_col)
+        out = unpack_dense(dense, metas, ts, ts_col)
+        ph = current_phases()
+        if ph is not None:
+            # the device time since the offsets' copy ended
+            ph.mark("densify")
+            ph.lap("h2d.launch")
+        return out
 
     def __call__(self, batch: HostBatch) -> Dict[str, torch.Tensor]:
         self.last_h2d_bytes = 0

@@ -43,6 +43,7 @@ import time
 from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.core.backoff import Backoff
+from repro_torch.obs.clock import now_ns
 
 
 @dataclasses.dataclass
@@ -197,6 +198,8 @@ class DPPWorkerPool:
 
     def _worker_loop(self, worker) -> None:
         t0 = time.perf_counter()
+        if self.telemetry is not None:
+            worker.telemetry = self.telemetry   # CPU time and dpp.* phases
         try:
             while True:
                 with self._lock:
@@ -335,7 +338,8 @@ class DPPWorkerPool:
                 return
             worker = self.worker_factory()
             th = threading.Thread(target=self._worker_loop, args=(worker,),
-                                  daemon=True)
+                                  daemon=True,
+                                  name=f"dpp-worker-{len(self._threads)}")
             self._workers.append(worker)
             self._threads.append(th)
             self._live += 1
@@ -363,12 +367,17 @@ class DPPWorkerPool:
             put(out)
             return
         tel.spans.enter_item(seq, attempt=False)
-        t0 = time.perf_counter()
+        t0 = now_ns()
+        c0 = time.thread_time_ns()
         try:
             put(out)
+            cpu = time.thread_time_ns() - c0
+            t1 = now_ns()
+            tel.spans.phase("dpp.place", threading.current_thread().name, t0,
+                            t1, cpu, seq)
             sp = tel.spans.get(seq)
             if sp is not None:
-                sp.stage("place", t0, time.perf_counter())
+                sp.stage("place", t0 / 1e9, t1 / 1e9)
         finally:
             tel.spans.exit_item()
             tel.spans.finish_item(seq)
@@ -454,8 +463,9 @@ class DPPWorkerPool:
             if target > logical:
                 for _ in range(target - logical):
                     worker = self.worker_factory()
-                    th = threading.Thread(target=self._worker_loop,
-                                          args=(worker,), daemon=True)
+                    th = threading.Thread(
+                        target=self._worker_loop, args=(worker,),
+                        daemon=True, name=f"dpp-worker-{len(self._threads)}")
                     self._workers.append(worker)
                     self._threads.append(th)
                     self._live += 1
@@ -648,6 +658,7 @@ class DPPWorkerPool:
             out.dedup_hits += s.dedup_hits
             out.decode_cache_hits += s.decode_cache_hits
             out.parallel_shards += s.parallel_shards
+            out.cpu_time_s += s.cpu_time_s
         with self._lock:
             out.worker_restarts += self.worker_restarts
             out.items_requeued += self.items_requeued

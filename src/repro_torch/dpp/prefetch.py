@@ -29,6 +29,7 @@ conservative default.
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -39,34 +40,41 @@ import torch
 
 from repro_torch.dpp.client import ClientStats
 from repro_torch.dpp.device_mat import is_jagged_batch, to_device
+from repro_torch.obs.clock import now_ns
+from repro_torch.obs.spans import PhaseClock
 
 HostBatch = Dict[str, np.ndarray]
 
 
 class _StateClock:
-    """Cumulative time-in-state tracker readable mid-state from other threads."""
+    """Cumulative time-in-state tracker readable mid-state from other threads
+    (seconds, on ``obs.clock``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._acc: Dict[str, float] = {}
         self._state: Optional[str] = None
-        self._since = 0.0
+        self._since = 0
 
-    def enter(self, state: Optional[str]) -> None:
-        now = time.perf_counter()
+    def enter(self, state: Optional[str], now: Optional[int] = None) -> int:
+        """Switch state at ``now`` (default: now); returns the stamp."""
+        if now is None:
+            now = now_ns()
         with self._lock:
             if self._state is not None:
-                self._acc[self._state] = (
-                    self._acc.get(self._state, 0.0) + now - self._since)
+                self._acc[self._state] = (self._acc.get(self._state, 0.0)
+                                          + (now - self._since) / 1e9)
             self._state = state
             self._since = now
+        return now
 
     def snapshot(self) -> Dict[str, float]:
-        now = time.perf_counter()
+        now = now_ns()
         with self._lock:
             out = dict(self._acc)
             if self._state is not None:
-                out[self._state] = out.get(self._state, 0.0) + now - self._since
+                out[self._state] = (out.get(self._state, 0.0)
+                                    + (now - self._since) / 1e9)
             return out
 
 
@@ -126,11 +134,11 @@ class DevicePrefetcher:
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._clock = _StateClock()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="dpp-prefetch")
         self._started = False
         self._stream: Optional[torch.cuda.Stream] = None
         self._telemetry = None
-        self._h2d_hist = None
         # end-of-stream sentinel observed by the consumer (vs a get timeout)
         self.ended = False
 
@@ -147,9 +155,6 @@ class DevicePrefetcher:
         self._telemetry = tel
         if tel is not None:
             tel.spans.has_h2d = True
-            self._h2d_hist = tel.registry.histogram(
-                "repro_h2d_seconds",
-                help="host->device transfer time per full batch")
 
     # -- producer (background transfer thread) -----------------------------------
     def _pull(self):
@@ -188,14 +193,21 @@ class DevicePrefetcher:
             getattr(v, "nbytes", 0) for v in prepped.values())
         return dev if self.place is None else self.place(dev)
 
-    def _transfer_ready(self, host_batch: HostBatch) -> _Ready:
-        """Transfer on the side stream and wait for it (CUDA), or directly."""
+    def _transfer_ready(self, host_batch: HostBatch,
+                        ph: Optional[PhaseClock]) -> _Ready:
+        """Transfer on the side stream and wait for it (CUDA), or directly.
+        ``ph`` (telemetry on) laps ``h2d.launch`` before the wait."""
         if self._stream is None:
-            return _Ready(self._transfer(host_batch), None)
+            dev = self._transfer(host_batch)
+            if ph is not None:
+                ph.lap("h2d.launch")
+            return _Ready(dev, None)
         with torch.cuda.stream(self._stream):
             dev = self._transfer(host_batch)
             event = torch.cuda.Event()
             event.record(self._stream)
+        if ph is not None:
+            ph.lap("h2d.launch")
         # block in THIS thread so the consumer receives resident buffers and
         # the H2D cost lands in the prefetcher's clock, not the train step
         event.synchronize()
@@ -208,31 +220,46 @@ class DevicePrefetcher:
                 # and kernel launches all target this card
                 torch.cuda.set_device(self.device)
                 self._stream = torch.cuda.Stream(device=self.device)
+            tel = self._telemetry
+            ph = None
+            if tel is not None:
+                # h2d.pull, .stage, .launch, .event_wait, .offer: the state
+                # clock switches at the laps' stamps; ``to_device`` laps
+                # h2d.stage and h2d.launch once an array, and marks the
+                # copies' (and the materializer the densify's) device ms
+                ph = PhaseClock(tel.spans, functools.partial(
+                    torch.cuda.Event, enable_timing=True)
+                    if self._stream is not None else None)
+                ph.park()
             while not self._stop.is_set():
-                self._clock.enter("host")
+                t = self._clock.enter("host")
+                if ph is not None:
+                    ph.start(t)
                 host_batch = self._pull()
                 if host_batch is None:
                     break
-                tel = self._telemetry
                 bs = tel.spans.pop_emitted() if tel is not None else None
-                self._clock.enter("h2d")
-                t0 = time.perf_counter()
-                ready = self._transfer_ready(host_batch)
-                t1 = time.perf_counter()
-                self.stats.h2d_time_s += t1 - t0
-                if tel is not None:
+                t0 = self._clock.enter(
+                    "h2d", ph.lap("h2d.pull") if ph is not None else None)
+                ready = self._transfer_ready(host_batch, ph)
+                t1 = self._clock.enter(
+                    "idle",
+                    ph.lap("h2d.event_wait") if ph is not None else None)
+                self.stats.h2d_time_s += (t1 - t0) / 1e9
+                if ph is not None:
                     if bs is not None:
-                        bs.stage("h2d", t0, t1)
+                        bs.stage("h2d", t0 / 1e9, t1 / 1e9)
                         tel.spans.push_h2d_done(bs)
-                    self._h2d_hist.observe(t1 - t0)
                 if self.recycle_host:
                     rec = getattr(self.source, "recycle", None)
                     if rec is not None:
                         # safe: _transfer_ready waited for the copy's event
                         rec(host_batch)
-                self._clock.enter("idle")
                 if not self._offer(ready):
                     return     # stopped while the queue was full
+                if ph is not None:
+                    ph.lap("h2d.offer")
+                    ph.commit(bs.emit_seq if bs is not None else None)
         except BaseException as e:  # propagate to the consumer
             self._clock.enter("idle")
             self._offer(_SourceError(e))
@@ -278,14 +305,14 @@ class DevicePrefetcher:
         for pulls that are NOT the trainer's critical path."""
         self.start()
         before = self._clock.snapshot()
-        t0 = time.perf_counter()
+        t0 = now_ns()
         try:
             out = self._q.get(timeout=timeout)
             if out is None:
                 self.ended = True
         except queue.Empty:
             return None
-        dt = time.perf_counter() - t0
+        dt = (now_ns() - t0) / 1e9
         if isinstance(out, _SourceError):
             self.stop()
             raise RuntimeError("device prefetch source failed") from out.exc

@@ -26,7 +26,8 @@ from repro_torch.dpp.featurize import (
     featurize,
     featurize_jagged,
 )
-from repro_torch.obs.spans import current_span
+from repro_torch.obs.clock import now_ns
+from repro_torch.obs.spans import current_seq, current_span
 
 ProbeFn = Callable[[int], Optional[List[TrainingExample]]]  # batch idx -> examples
 
@@ -70,6 +71,9 @@ class WorkerStats:
     worker_restarts: int = 0      # workers that died mid-item and were replaced
     items_requeued: int = 0       # work items re-dispatched after a crash
     lease_recoveries: int = 0     # generation leases released by crash recovery
+    # thread CPU time over the lookup and featurize intervals, counted while
+    # a pool's telemetry is on (else 0); a pool's items never probe
+    cpu_time_s: float = 0.0
 
     @property
     def busy_time_s(self) -> float:
@@ -98,6 +102,9 @@ class DPPWorker:
         self.schema = schema
         self.probe_latency_s = probe_latency_s
         self.stats = WorkerStats()
+        # a ``repro_torch.obs.Telemetry`` (set by the pool): CPU time and
+        # ``dpp.*`` phases of every item, unsampled
+        self.telemetry = None
 
     @classmethod
     def from_plan(cls, plan: WorkerPlan) -> "DPPWorker":
@@ -108,8 +115,21 @@ class DPPWorker:
                    probe_latency_s=plan.probe_latency_s)
 
     # -- single base batch -----------------------------------------------------
+    def _cpu(self) -> int:
+        """Thread CPU ns now, or 0 with telemetry off (no clock read)."""
+        return time.thread_time_ns() if self.telemetry is not None else 0
+
+    def _phase(self, name: str, t0: int, t1: int, cpu: int) -> None:
+        """Count the interval's CPU time and file it as a ``dpp.*`` phase
+        under the current work item's seq (telemetry on)."""
+        self.stats.cpu_time_s += cpu / 1e9
+        self.telemetry.spans.phase(
+            name, threading.current_thread().name, t0, t1, cpu,
+            current_seq())
+
     def _lookup(self, examples: List[TrainingExample]) -> List[ev.EventBatch]:
-        t0 = time.perf_counter()
+        t0 = now_ns()
+        c0 = self._cpu()     # CPU reads inside the wall stamps
         # materializer-local IO accounting: the store's global stats are
         # shared across workers, so deltas of them would mix in other
         # workers' concurrent traffic
@@ -119,27 +139,38 @@ class DPPWorker:
         self.stats.dedup_hits += d.dedup_hits
         self.stats.decode_cache_hits += d.decode_cache_hits
         self.stats.parallel_shards += d.parallel_shards
-        t1 = time.perf_counter()
-        self.stats.lookup_time_s += t1 - t0
+        c1 = self._cpu()
+        t1 = now_ns()
+        self.stats.lookup_time_s += (t1 - t0) / 1e9
+        if self.telemetry is not None:
+            self._phase("dpp.scan", t0, t1, c1 - c0)
         sp = current_span()
         if sp is not None:
             # decode runs on store-internal shard threads, so it folds into
             # the scan stage; the IOStats delta keeps its weight visible
-            sp.stage("scan", t0, t1)
+            sp.stage("scan", t0 / 1e9, t1 / 1e9)
             sp.meta["bytes_scanned"] = sp.meta.get("bytes_scanned", 0) + d.bytes_scanned
             sp.meta["bytes_decoded"] = sp.meta.get("bytes_decoded", 0) + d.bytes_decoded
         return uihs
 
-    def _featurize(self, examples, uihs) -> Dict[str, np.ndarray]:
-        t0 = time.perf_counter()
-        out = featurize(examples, uihs, self.feature_spec)
-        t1 = time.perf_counter()
-        self.stats.featurize_time_s += t1 - t0
+    def _featurized(self, examples, t0: int, c0: int) -> None:
+        """Count one featurized base batch begun at ``t0`` (CPU ``c0``)."""
+        c1 = self._cpu()
+        t1 = now_ns()
+        self.stats.featurize_time_s += (t1 - t0) / 1e9
         self.stats.base_batches += 1
         self.stats.examples += len(examples)
+        if self.telemetry is not None:
+            self._phase("dpp.featurize", t0, t1, c1 - c0)
         sp = current_span()
         if sp is not None:
-            sp.stage("featurize", t0, t1)
+            sp.stage("featurize", t0 / 1e9, t1 / 1e9)
+
+    def _featurize(self, examples, uihs) -> Dict[str, np.ndarray]:
+        t0 = now_ns()
+        c0 = self._cpu()
+        out = featurize(examples, uihs, self.feature_spec)
+        self._featurized(examples, t0, c0)
         return out
 
     def process(self, examples: List[TrainingExample]) -> Dict[str, np.ndarray]:
@@ -150,15 +181,10 @@ class DPPWorker:
         [B, L] densification — ``RebatchingClient.put_jagged`` scatters the
         arena straight into the slot (one copy instead of three)."""
         uihs = self._lookup(examples)
-        t0 = time.perf_counter()
+        t0 = now_ns()
+        c0 = self._cpu()
         out = featurize_jagged(examples, uihs, self.feature_spec)
-        t1 = time.perf_counter()
-        self.stats.featurize_time_s += t1 - t0
-        self.stats.base_batches += 1
-        self.stats.examples += len(examples)
-        sp = current_span()
-        if sp is not None:
-            sp.stage("featurize", t0, t1)
+        self._featurized(examples, t0, c0)
         return out
 
     def _probe(self, probe: ProbeFn, idx: int) -> Optional[List[TrainingExample]]:
@@ -206,7 +232,8 @@ class DPPWorker:
                     return
                 idx += 1
 
-        th = threading.Thread(target=producer, daemon=True)
+        th = threading.Thread(target=producer, daemon=True,
+                              name="dpp-producer")
         th.start()
         try:
             while True:

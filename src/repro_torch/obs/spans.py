@@ -11,8 +11,9 @@ recorded ambiently: the pool parks the item's span in a thread-local around
 stages via :func:`current_span` without knowing telemetry exists (one
 thread-local read when telemetry is off).
 
-Stages (all ``time.perf_counter`` pairs; a retried attempt OVERWRITES the
-stage so the surviving chain is the attempt that actually produced data):
+Stages (float seconds on ``obs.clock``'s epoch base, ``now_ns() / 1e9``, the
+base of a ``torch.profiler`` trace; a retried attempt OVERWRITES the stage so
+the surviving chain is the attempt that actually produced data):
 
     scan       store lookup incl. decode (decode runs on store-internal
                shard threads, so it folds into scan; the scan stage carries
@@ -36,8 +37,37 @@ Association is exact in ordered mode (a single placer thread owns
 commit order); in unordered mode it is best-effort FIFO matching.
 
 Sampling: 1-in-``sample_every`` items get a span (seq modulo). ``sample_every=1``
-records everything (tests); the default keeps overhead well under the 2%
-budget enforced by ``benchmarks/bench_feed.py``.
+records everything (tests).
+
+Thread phases. Beside the sampled item spans the tracker keeps a bounded
+ring of phase spans (``PHASE_CAPACITY``), unsampled: ``(name, thread,
+t0_ns, t1_ns, cpu_ns, id)`` on ``obs.clock``'s nanoseconds, ``cpu_ns`` the
+growth of ``time.thread_time_ns()`` over the span, with a ``dropped`` count
+once the ring is full. A thread records consecutive phases through a
+``PhaseClock``: the trainer ``train.feed_wait``, ``train.grads``,
+``train.optimizer`` and ``train.readback`` under the step number; the
+transfer thread ``h2d.pull``, then ``h2d.stage`` and ``h2d.launch`` once an
+array (and ``h2d.launch`` once a densify kernel), ``h2d.event_wait`` and
+``h2d.offer`` under the batch's ``emit_seq``; each
+DPP worker ``dpp.scan`` and ``dpp.featurize`` (and ``dpp.place``) under the
+work item's seq. On CUDA a phase also carries the device milliseconds
+between CUDA events recorded inside it (``device_ms``: ``grads``,
+``optimizer`` and ``readback`` on the trainer's stream; ``copy`` and
+``densify`` on the transfer thread's side stream), resolved lazily by
+``resolve()`` (``query()``, never a synchronize on the hot path) at each
+``commit`` that filed marks, and in full by ``timeline()`` and ``drain()``.
+``obs.timeline`` reads the ring back: a summary by thread and phase, and
+the overlap of phases with a trace's device intervals.
+
+Cost: with telemetry off every site is one ``is None`` test and no CPU
+clock is read. With it on (every phase, unsampled, and the CUDA events),
+the benchmark's two cells on one H100 80GB HBM3 (700 W) trained at 127.1
+against 127.5 examples/s (DLRM-UIH, L=2048) and 29,847 against 29,566
+(DCN-v2, batch 1,024): medians of 6 runs each way, whose spreads (2.7–5.4%)
+are wider than any difference. The handover alone, on DLRM-UIH-sized
+payloads with no trainer, took 0.6–1.2 ms more a batch with it on (its CUDA
+events and laps, once an array) than the 1.1–1.3 ms it takes off (PERF.md
+§6).
 """
 from __future__ import annotations
 
@@ -45,9 +75,14 @@ import collections
 import json
 import threading
 import time
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+
+from repro_torch.obs.clock import now_ns
 
 STAGES: Tuple[str, ...] = ("scan", "featurize", "place", "h2d", "train")
+# the phase ring's size: a 51 s window of DCN-v2's replayed step files about
+# 6,300 phases, one of DLRM-UIH's feed about 6,800
+PHASE_CAPACITY = 16384
 HOST_STAGES: Tuple[str, ...] = ("scan", "featurize", "place")
 
 _TLS = threading.local()
@@ -58,6 +93,19 @@ def current_span() -> Optional["ItemSpan"]:
     None (telemetry off / item unsampled).  Stage recorders in the worker
     and client call this; it must stay allocation-free."""
     return getattr(_TLS, "span", None)
+
+
+def current_seq() -> Optional[int]:
+    """The seq of the work item this thread is processing, sampled or not
+    (None: telemetry off or no item)."""
+    return getattr(_TLS, "seq", None)
+
+
+def current_phases() -> Optional["PhaseClock"]:
+    """The phase clock this thread parked with ``PhaseClock.park``, or None
+    (telemetry off): code called by the transfer thread laps and marks
+    through it without knowing telemetry exists."""
+    return getattr(_TLS, "phases", None)
 
 
 class ItemSpan:
@@ -143,9 +191,106 @@ class BatchSpan:
                 "items": [sp.to_dict() for sp in self.items]}
 
 
+class PhaseSpan:
+    """One phase of one thread: wall nanoseconds on ``obs.clock``, the
+    thread's CPU nanoseconds over it, the id it belongs to (a step, a
+    batch's ``emit_seq``, a work item's seq) and, once resolved, the device
+    milliseconds of the CUDA intervals recorded inside it."""
+
+    __slots__ = ("name", "thread", "t0_ns", "t1_ns", "cpu_ns", "id",
+                 "device_ms")
+
+    def __init__(self, name: str, thread: str, t0_ns: int, t1_ns: int,
+                 cpu_ns: int, id: Any = None) -> None:
+        self.name = name
+        self.thread = thread
+        self.t0_ns = t0_ns
+        self.t1_ns = t1_ns
+        self.cpu_ns = cpu_ns
+        self.id = id
+        self.device_ms: Optional[Dict[str, float]] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = {"name": self.name, "thread": self.thread, "t0_ns": self.t0_ns,
+               "t1_ns": self.t1_ns, "cpu_ns": self.cpu_ns, "id": self.id}
+        if self.device_ms is not None:
+            out["device_ms"] = dict(self.device_ms)
+        return out
+
+
+class PhaseClock:
+    """Consecutive phases of the calling thread, filed under one id.
+
+    ``start()`` opens a cycle and its first phase; ``lap(name)`` closes the
+    open phase as ``name`` and opens the next; ``commit(id)`` files the
+    closed phases in the tracker's ring and ends the cycle. ``event`` makes
+    a CUDA timing event (None off the card): ``mark(key)`` records one on
+    the current stream, and the device time since the cycle's previous mark
+    is added to ``device_ms[key]`` of the phase open at the mark (a mark
+    without a key only sets the origin). One clock belongs to one thread."""
+
+    __slots__ = ("tracker", "event", "open", "_t", "_c", "_laps", "_dev",
+                 "_prev")
+
+    def __init__(self, tracker: "SpanTracker",
+                 event: Optional[Callable[[], Any]] = None) -> None:
+        self.tracker = tracker
+        self.event = event
+        self.open = False
+
+    def start(self, t_ns: Optional[int] = None) -> None:
+        self._t = now_ns() if t_ns is None else t_ns
+        self._c = time.thread_time_ns()
+        self._laps: List[Tuple[str, int, int, int]] = []
+        self._dev: List[Tuple[int, str, Any, Any]] = []
+        self._prev = None
+        self.open = True
+
+    def lap(self, name: str) -> int:
+        """Close the open phase as ``name``; returns the stamp (``now_ns``)
+        that ends it and starts the next."""
+        # the CPU clock is read inside the wall stamps on both sides, so a
+        # phase's cpu_ns stays within its wall time
+        c = time.thread_time_ns()
+        t = now_ns()
+        self._laps.append((name, self._t, t, c - self._c))
+        self._t = t
+        self._c = time.thread_time_ns()
+        return t
+
+    def mark(self, key: Optional[str] = None) -> None:
+        if self.event is None:
+            return
+        e = self.event()
+        e.record()
+        if key is not None and self._prev is not None:
+            self._dev.append((len(self._laps), key, self._prev, e))
+        self._prev = e
+
+    def commit(self, id: Any = None) -> List[PhaseSpan]:
+        """File the cycle's phases, and resolve the device times that have
+        completed, so that device marks wait in no queue longer than their
+        events take."""
+        thread = threading.current_thread().name
+        spans = [self.tracker.phase(name, thread, t0, t1, cpu, id)
+                 for name, t0, t1, cpu in self._laps]
+        for i, key, e0, e1 in self._dev:
+            if i < len(spans):
+                self.tracker.device(spans[i], key, e0, e1)
+        self.open = False
+        if self._dev:
+            self.tracker.resolve()
+        return spans
+
+    def park(self) -> None:
+        """Make this the calling thread's ``current_phases()``."""
+        _TLS.phases = self
+
+
 class SpanTracker:
     """Mints item spans, threads them through the emission/delivery FIFOs,
-    and keeps a bounded ring of completed batch spans."""
+    and keeps a bounded ring of completed batch spans and one of thread
+    phases."""
 
     def __init__(self, sample_every: int = 8, capacity: int = 2048,
                  registry=None) -> None:
@@ -161,6 +306,12 @@ class SpanTracker:
         self._h2d_done: Deque[BatchSpan] = collections.deque()
         self._await_train: Deque[BatchSpan] = collections.deque()
         self.completed: Deque[BatchSpan] = collections.deque(maxlen=capacity)
+        # thread phases: the newest ``PHASE_CAPACITY``, the rest counted
+        self.phases: Deque[PhaseSpan] = collections.deque(
+            maxlen=PHASE_CAPACITY)
+        self.phases_dropped = 0
+        self._pending: Deque[Tuple[PhaseSpan, str, Any, Any]] = (
+            collections.deque())
         # lifecycle accounting (orphan detection in tests / report)
         self.minted = 0
         self.abandoned = 0
@@ -172,7 +323,7 @@ class SpanTracker:
     def mint(self, seq: int) -> Optional[ItemSpan]:
         if seq % self.sample_every:
             return None
-        sp = ItemSpan(seq, time.perf_counter())
+        sp = ItemSpan(seq, now_ns() / 1e9)
         with self._lock:
             self._items[seq] = sp
             self.minted += 1
@@ -182,6 +333,7 @@ class SpanTracker:
         return self._items.get(seq)
 
     def enter_item(self, seq: int, attempt: bool = True) -> None:
+        _TLS.seq = seq
         # unsampled fast path: skip the dict lookup (seven of eight items at
         # the default sampling — this is the per-item hot path)
         if seq % self.sample_every:
@@ -194,6 +346,7 @@ class SpanTracker:
 
     def exit_item(self) -> None:
         _TLS.span = None
+        _TLS.seq = None
 
     def current(self) -> Optional[ItemSpan]:
         return current_span()
@@ -219,7 +372,7 @@ class SpanTracker:
                    rows: int) -> BatchSpan:
         # unsampled batches are placeholders that only hold a FIFO position:
         # skip the clock read for them
-        t = time.perf_counter() if items else 0.0
+        t = now_ns() / 1e9 if items else 0.0
         bs = BatchSpan(emit_seq, list(items), rows, t)
         with self._lock:
             self._emitted.append(bs)
@@ -243,7 +396,7 @@ class SpanTracker:
                 return None
             bs = q.popleft()
             if bs.sampled:
-                bs.t_deliver = time.perf_counter()
+                bs.t_deliver = now_ns() / 1e9
             self._await_train.append(bs)
             self.delivered_batches += 1
         return bs
@@ -254,7 +407,7 @@ class SpanTracker:
                 return None
             bs = self._await_train.popleft()
         if bs.sampled:
-            bs.t_train_end = time.perf_counter()
+            bs.t_train_end = now_ns() / 1e9
             bs.stage("train", bs.t_train_end - dt, bs.t_train_end)
             self._finalize(bs)
         return bs
@@ -280,6 +433,7 @@ class SpanTracker:
         """Feed shut down: close out spans still riding the FIFOs.  Batches
         delivered but never trained finalize without a train stage; batches
         emitted but never delivered count as dropped in flight."""
+        self.resolve(block=True)
         with self._lock:
             await_train = list(self._await_train)
             self._await_train.clear()
@@ -295,6 +449,49 @@ class SpanTracker:
         a drained run (the span-completeness invariant)."""
         with self._lock:
             return list(self._items.values())
+
+    # -- thread phases -------------------------------------------------------
+    def phase(self, name: str, thread: str, t0_ns: int, t1_ns: int,
+              cpu_ns: int, id: Any = None) -> PhaseSpan:
+        ps = PhaseSpan(name, thread, t0_ns, t1_ns, cpu_ns, id)
+        with self._lock:
+            if len(self.phases) == self.phases.maxlen:
+                self.phases_dropped += 1
+            self.phases.append(ps)
+        return ps
+
+    def device(self, span: PhaseSpan, key: str, start, end) -> None:
+        """Add ``end``'s elapsed time since ``start`` (CUDA events) to
+        ``span.device_ms[key]`` once ``end`` has completed."""
+        with self._lock:
+            self._pending.append((span, key, start, end))
+
+    def resolve(self, block: bool = False) -> None:
+        """Fill in the device times whose events have completed, in the
+        order they were filed; ``block`` waits for the rest."""
+        with self._lock:
+            while self._pending:
+                span, key, start, end = self._pending[0]
+                if block:
+                    end.synchronize()
+                elif not end.query():
+                    return
+                self._pending.popleft()
+                if span.device_ms is None:
+                    span.device_ms = {}
+                span.device_ms[key] = (span.device_ms.get(key, 0.0)
+                                       + start.elapsed_time(end))
+
+    def timeline(self) -> List[Dict[str, Any]]:
+        """The ring's phases, oldest first, device times resolved."""
+        self.resolve(block=True)
+        with self._lock:
+            return [ps.to_dict() for ps in self.phases]
+
+    def write_timeline(self, path) -> None:
+        with open(path, "w") as f:
+            for rec in self.timeline():
+                f.write(json.dumps(rec) + "\n")
 
     # -- analysis ------------------------------------------------------------
     def stage_totals(self) -> Dict[str, float]:
@@ -337,7 +534,9 @@ class SpanTracker:
                     "delivered_batches": self.delivered_batches,
                     "dropped_in_flight": self.dropped_in_flight,
                     "live_items": len(self._items),
-                    "completed": len(self.completed)}
+                    "completed": len(self.completed),
+                    "phases": len(self.phases),
+                    "phases_dropped": self.phases_dropped}
 
 
 def critical_path(stage_totals: Dict[str, float], *,

@@ -13,9 +13,16 @@ the data plane degrades to a single attribute-is-None check.
     metrics.prom    Prometheus text exposition of the same registry
     events.jsonl    control-plane event timeline (one record per line)
     spans.jsonl     completed sampled batch spans (one batch per line)
+    timeline.jsonl  thread phase spans, oldest first (one phase per line:
+                    name, thread, t0_ns, t1_ns, cpu_ns, id, device_ms)
     summary.json    span lifecycle counts + critical-path attribution
 
-``python -m repro_torch.obs.report <run_dir>`` renders them for humans.
+Every span and stage stamps with ``obs.clock.now_ns()``, the epoch base of a
+``torch.profiler`` trace, so a run's host spans line up with the device
+intervals of a trace of the same process.
+
+``python -m repro_torch.obs.report <run_dir>`` renders them for humans, and
+``python -m repro_torch.obs.timeline <run_dir>`` summarizes the timeline.
 """
 from __future__ import annotations
 
@@ -83,6 +90,7 @@ class Telemetry:
         (out / "metrics.prom").write_text(self.registry.prometheus_text())
         self.events.write_jsonl(out / "events.jsonl")
         self.spans.write_jsonl(out / "spans.jsonl")
+        self.spans.write_timeline(out / "timeline.jsonl")
         (out / "summary.json").write_text(
             json.dumps(self.summary(), indent=1, default=str))
         return out

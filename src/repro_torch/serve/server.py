@@ -57,6 +57,7 @@ from repro_torch.core.projection import TenantProjection
 from repro_torch.core.versioning import TrainingExample, VersionMetadata
 from repro_torch.dpp.featurize import FeatureSpec, featurize
 from repro_torch.models import recsys as R
+from repro_torch.obs.clock import now_ns
 from repro_torch.obs.spans import ItemSpan
 from repro_torch.serve.cache import UserEmbeddingCache
 from repro_torch.serve.coalescer import PendingRequest, RequestCoalescer
@@ -292,7 +293,7 @@ class RetrievalServer:
 
     def _serve_batch(self, batch: List[PendingRequest], flush: str) -> None:
         cfg = self.cfg
-        t_start = time.monotonic()
+        t_start = now_ns() / 1e9
         n = len(batch)
         embs: List[Optional[np.ndarray]] = [None] * n
         cold_idx: List[int] = []
@@ -340,20 +341,20 @@ class RetrievalServer:
 
             # cold path: scan -> featurize -> encode, all under the lease so
             # the pinned generation cannot be GC'd mid-materialization
-            t_probe = time.monotonic()
+            t_probe = now_ns() / 1e9
             t_scan = t_feat = t_encode = t_probe
             if cold_idx:
                 uihs = self.materializer.materialize_batch(
                     cold_examples, self.projection)
-                t_scan = time.monotonic()
+                t_scan = now_ns() / 1e9
                 feats = featurize(cold_examples, uihs, self.feature_spec)
                 pad_to = max(cfg.max_batch, len(cold_idx))
                 uid = _pad_rows(feats["user_id"], pad_to)
                 ids = _pad_rows(feats["uih_item_id"], pad_to)
                 mask = _pad_rows(feats["uih_mask"], pad_to)
-                t_feat = time.monotonic()
+                t_feat = now_ns() / 1e9
                 fresh_embs = self._encode(uid, ids, mask)[:len(cold_idx)]
-                t_encode = time.monotonic()
+                t_encode = now_ns() / 1e9
                 for j, i in enumerate(cold_idx):
                     embs[i] = fresh_embs[j]
                     if self.cache is not None:
@@ -370,7 +371,7 @@ class RetrievalServer:
         pad_to = max(cfg.max_batch, n)
         user_mat = _pad_rows(np.stack(embs, axis=0), pad_to)
         item_ids, scores = self.index.top_k(user_mat, k_max)
-        t_score = time.monotonic()
+        t_score = now_ns() / 1e9
         index_version = self.index.version
 
         now = time.monotonic()

@@ -10,15 +10,20 @@ parameters in place. The loss is any ``loss_fn(params, batch) -> scalar``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.obs.spans import PhaseClock
 from repro_torch.train.grad_compress import compress_with_feedback, ef_init
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
+
+
+_END = object()      # fit's end-of-feed sentinel
 
 
 @dataclasses.dataclass
@@ -41,10 +46,13 @@ class TrainerConfig:
     device_materialize: bool = False
     # bound ``fit`` by wall clock instead of (or in addition to) max_steps
     max_wall_s: Optional[float] = None
-    # unified telemetry: a ``repro_torch.obs.Telemetry`` — ``fit`` observes a
-    # per-step ``repro_train_step_seconds`` histogram, ``save``/``try_resume``
-    # emit checkpoint_save / checkpoint_resume events. Falls back to the
-    # feed's own telemetry when None.
+    # unified telemetry: a ``repro_torch.obs.Telemetry`` — each step files
+    # the phases ``train.feed_wait`` (in ``fit``), ``train.grads``,
+    # ``train.optimizer`` and ``train.readback`` under its step number (with
+    # their device ms on CUDA), ``fit`` observes a per-step
+    # ``repro_train_step_seconds`` histogram from them, ``save``/
+    # ``try_resume`` emit checkpoint_save / checkpoint_resume events. Falls
+    # back to the feed's own telemetry when None.
     telemetry: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -72,6 +80,17 @@ class Trainer:
         # must happen AFTER record_train_step so the feed's trained-row
         # counter includes the step being checkpointed.
         self._fit_feed = None
+        self._phases = self._phase_clock(cfg.telemetry)
+        self._step_s = 0.0   # the last step's seconds, from its phases
+
+    def _phase_clock(self, tel) -> Optional[PhaseClock]:
+        """The trainer thread's phase clock over ``tel`` (None: off), with
+        CUDA timing events on the card."""
+        if tel is None:
+            return None
+        event = (functools.partial(torch.cuda.Event, enable_timing=True)
+                 if self.device.type == "cuda" else None)
+        return PhaseClock(tel.spans, event)
 
     # -- one optimizer step (with optional microbatch accumulation) -----------
     def _grads(self, batch: Dict[str, torch.Tensor]):
@@ -104,15 +123,31 @@ class Trainer:
 
     def run_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """batch rows are split into ``grad_accum`` microbatches."""
+        ph = self._phases
+        if ph is not None:
+            if not ph.open:          # not inside fit's cycle
+                ph.start()
+            ph.mark()
         loss, grads = self._grads(batch)
+        if ph is not None:
+            ph.mark("grads")
+            ph.lap("train.grads")
         if self.ef_state is not None:
             grads, self.ef_state = compress_with_feedback(grads, self.ef_state)
         self.params, self.opt_state, stats = adamw_update(
             self.params, grads, self.opt_state, self.cfg.opt)
         del grads
+        if ph is not None:
+            ph.mark("optimizer")
+            ph.lap("train.optimizer")
         stats["loss"] = loss
         self.step += 1
         out = {k: float(v) for k, v in stats.items()}
+        if ph is not None:
+            ph.mark("readback")
+            ph.lap("train.readback")
+            spans = ph.commit(self.step)
+            self._step_s = (spans[-1].t1_ns - spans[-3].t0_ns) / 1e9
         self.history.append(out)
         if (self.ckpt and self.step % self.cfg.ckpt_every == 0
                 and self._fit_feed is None):
@@ -185,6 +220,9 @@ class Trainer:
         step_hist = (tel.registry.histogram(
             "repro_train_step_seconds",
             help="device train-step wall time") if tel is not None else None)
+        own_phases = self._phases
+        ph = self._phases = (own_phases if tel is self.cfg.telemetry
+                             else self._phase_clock(tel))
         t0 = time.perf_counter()
 
         def batches():
@@ -227,14 +265,22 @@ class Trainer:
                 yield b
 
         try:
-            for batch in batches():
+            it = batches()
+            while True:
+                if ph is not None:
+                    ph.start()
+                batch = next(it, _END)
+                if batch is _END:
+                    break
+                if ph is not None:
+                    ph.lap("train.feed_wait")
                 ts = time.perf_counter()
                 stats = self.run_step(batch)   # float() of the loss syncs
                 dt_step = time.perf_counter() - ts
                 if record is not None:
                     record(dt_step)
                 if step_hist is not None:
-                    step_hist.observe(dt_step)
+                    step_hist.observe(self._step_s)
                 if (self.ckpt and self._fit_feed is not None
                         and self.step % self.cfg.ckpt_every == 0):
                     # deferred from run_step: the feed's trained-row counter
@@ -253,6 +299,9 @@ class Trainer:
                     break
         finally:
             self._fit_feed = None
+            self._phases = own_phases
+            if ph is not None:
+                ph.open = False
             # break AND exception paths: release the transfer thread and any
             # queued device batches (idempotent; harmless on exhaustion).
             # A Feed's stop() releases ONLY its device-prefetch stage — the

@@ -241,13 +241,14 @@ def test_fused_densify_kernel_one_launch_a_call(cuda, ts):
                        "fused_densify_kernel")
 
 
-def test_materializer_on_card_equals_densify_host(cuda):
-    rng = np.random.default_rng(24)
+def _jagged_payloads(rng, puts=4):
+    """Compact payloads of 8 rows from ``puts`` base batches, one of them
+    with a drifted trait on its own offsets."""
     spec = FeatureSpec(seq_len=7, uih_traits=("item_id", "flag", "timestamp"),
                        candidate_fields=("item_id",), label_fields=("click",))
     client = RebatchingClient(8, buffer_batches=64, shuffle_seed=0,
                               emit_jagged=True)
-    for k in range(4):
+    for k in range(puts):
         exs, uihs = [], []
         for i in range(int(rng.integers(1, 11))):
             n = int(rng.integers(0, 21))
@@ -263,8 +264,12 @@ def test_materializer_on_card_equals_densify_host(cuda):
                 candidate={"item_id": i}, labels={"click": 0.0}))
         client.put_jagged(featurize_jagged(exs, uihs, spec))
     client.close()
+    return list(client)
+
+
+def test_materializer_on_card_equals_densify_host(cuda):
     mat = device_mat.DeviceMaterializer(device=cuda)
-    payloads = list(client)
+    payloads = _jagged_payloads(np.random.default_rng(24))
     assert payloads
     for p in payloads:
         got = mat(p)
@@ -275,6 +280,62 @@ def test_materializer_on_card_equals_densify_host(cuda):
             g = got[k].cpu().numpy()
             assert got[k].is_cuda and g.dtype == w.dtype, k
             assert g.tobytes() == w.tobytes(), k
+
+
+def test_telemetry_times_the_step_and_the_handover_on_card(cuda):
+    """With telemetry on, the trainer's phases carry their device ms from
+    CUDA events on its stream, and the transfer thread's ``h2d.launch``
+    phases each copy's and each densify's on its side stream, all resolved
+    by the time the timeline is read."""
+    from repro_torch.dpp.prefetch import DevicePrefetcher
+    from repro_torch.obs import Telemetry
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    payloads = _jagged_payloads(np.random.default_rng(5), puts=12)
+    tel = Telemetry()
+    feed = DevicePrefetcher(payloads, depth=2, device=cuda,
+                            materialize=device_mat.DeviceMaterializer(
+                                device=cuda))
+    feed.telemetry = tel
+    params = {"w": torch.full((2,), 0.5, device=cuda, requires_grad=True)}
+
+    def loss(p, b):
+        x = torch.stack([b["uih_item_id"].float().mean(1),
+                         b["uih_flag"].float().mean(1)], 1) / 100.0
+        return ((x @ p["w"] - b["label_click"].float()) ** 2).mean()
+
+    trainer = Trainer(loss, params, TrainerConfig(telemetry=tel))
+    trainer.fit(feed)
+    assert len(trainer.history) == len(payloads)
+    rows = tel.spans.timeline()
+    assert tel.spans.phases_dropped == 0
+    for name, keys in (("train.grads", {"grads"}),
+                       ("train.optimizer", {"optimizer"}),
+                       ("train.readback", {"readback"})):
+        got = [r for r in rows if r["name"] == name]
+        assert len(got) == len(payloads), name
+        for r in got:
+            assert set(r["device_ms"]) == keys, r
+            assert all(v >= 0 for v in r["device_ms"].values()), r
+    # a batch (one transfer cycle, from its h2d.pull): one copy an array
+    # staged and one densify a kernel group, each on an h2d.launch of its own
+    cycles = []
+    for r in rows:
+        if r["thread"] == "dpp-prefetch":
+            if r["name"] == "h2d.pull":
+                cycles.append([])
+            cycles[-1].append(r)
+    assert len(cycles) == len(payloads)
+    for cycle in cycles:
+        marks = [r["device_ms"] for r in cycle
+                 if r["name"] == "h2d.launch" and "device_ms" in r]
+        assert all(len(d) == 1 and min(d.values()) >= 0 for d in marks), marks
+        staged = sum(r["name"] == "h2d.stage" for r in cycle)
+        assert sum("copy" in d for d in marks) == staged, cycle
+        assert sum("densify" in d for d in marks) in (1, 2), cycle
+    assert all("device_ms" not in r for r in rows
+               if r["name"] in ("train.feed_wait", "h2d.pull", "h2d.stage",
+                                "h2d.event_wait", "h2d.offer"))
 
 
 EB_V = 50_000
