@@ -12,6 +12,14 @@ take each cluster size and each lane path; one device kernel a call, times
 against the bound, the split of a call's host time), and drives the port's
 paths over one ``ProductionSim``:
 
+0a. AdamW: the multi-tensor AdamW kernel (``kernels/adamw``) over FULL
+   DLRM-UIH's and FULL DCN-v2's own leaves, with gradients drawn on the
+   card: 2 steps held against its plain per-leaf version (each element
+   within limits that scale with its array, each parameter leaf's error
+   norm against its change), then timed (device only and a call) beside the
+   plain version, ``torch.optim.AdamW(fused=True)`` (the yardstick; the port
+   never calls it) and the bound of 32 B a parameter, with the kernel's
+   launch counters.
 0. The standalone kernels: the sim's last 32 training examples, materialized
    and featurized as the feed's host plane does (L=2048), through
    ``jagged_to_padded`` (each trait arena, and (N, 128) float32 and bf16 row
@@ -29,7 +37,8 @@ paths over one ``ProductionSim``:
    The last ``PROFILE_STEPS`` steps are traced with ``torch.profiler``
    (device activity only) and every step is split by CUDA events into
    gradients and AdamW, so the step's breakdown comes from the path's own
-   batches. Its tensors are then released.
+   batches; every step makes the AdamW kernel's two launches (the kernels'
+   table gives this path's count). Its tensors are then released.
 1a. Tenants: FULL DCN-v2, DIEN and BERT4Rec (``configs/{dcn_v2,dien,
    bert4rec}.FULL``), each trained ``TENANT_STEPS`` AdamW steps by
    ``Trainer.fit`` from its own ``open_feed(device_materialize=True)`` at its
@@ -671,6 +680,191 @@ def densify_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 0a: the multi-tensor AdamW kernel over the benchmark cells' leaves
+# ---------------------------------------------------------------------------
+
+ADAMW_MODELS = ("dlrm_uih", "dcn_v2")   # FULL configs whose leaves it updates
+ADAMW_ITERS = 20           # calls a timing window (a DLRM-UIH call ~15 ms)
+ADAMW_CHECK_STEPS = 2      # steps held against the plain version
+# kernel against plain version, float32 both: float64 norm partials against
+# a float32 reduction, one rounded scale against two, contracted
+# multiply-adds (tests/test_torch_gpu.py's AW_TOL). The limits scale with
+# the arrays: with the clip active over ~1.5e9 parameters the scaled
+# gradient is ~2.5e-5, m ~5e-6 and v ~3e-11, where any fixed atol would
+# pass anything. Each element of p, m and v: within ADAMW_RTOL of |want|
+# plus ADAMW_ATOL_SHARE of the array's largest |want|. Each parameter
+# leaf's error norm within ADAMW_CHANGE_RTOL of its change's norm over the
+# steps (rounding reads ~1e-6 there; a dropped decay reads
+# ADAMW_CHECK_DECAY times the leaf's rms, 1e-3 for a table drawn at 0.01)
+ADAMW_RTOL, ADAMW_ATOL_SHARE, ADAMW_CHANGE_RTOL = 2e-5, 1e-6, 2e-5
+ADAMW_CHECK_DECAY = 0.1    # ten times the configs' 0.01: a visible decay
+ADAMW_GRAD_STD = 1e-3      # the drawn gradients' scale: the clip is active
+
+
+def adamw_leaves(name: str):
+    """FULL ``name``'s parameter leaves on the card, gradients drawn there,
+    zero moments and the ``ndim >= 2`` decays of ``adamw_update``."""
+    import torch
+
+    from repro_torch.configs import dcn_v2, dlrm_uih
+    from repro_torch.models import recsys as R
+    from repro_torch.tree import tree_leaves
+
+    init, cfg = {"dlrm_uih": (R.init_dlrm_uih, dlrm_uih.FULL),
+                 "dcn_v2": (R.init_dcn_v2, dcn_v2.FULL)}[name]
+    params = [p.detach() for p in tree_leaves(init(cfg, SEED, DEVICE))]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    grads = [torch.randn(p.shape, generator=gen, device=DEVICE)
+             .mul_(ADAMW_GRAD_STD) for p in params]
+    ms = [torch.zeros_like(p) for p in params]
+    vs = [torch.zeros_like(p) for p in params]
+    return params, grads, ms, vs, [ADAMW_CHECK_DECAY * (p.ndim >= 2)
+                                   for p in params]
+
+
+def adamw_step_kwargs(step: int) -> dict:
+    import numpy as np
+
+    f = np.float32
+    return dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, clip=1.0,
+                bc1=float(f(1) - f(0.9) ** f(step)),
+                bc2=float(f(1) - f(0.95) ** f(step)))
+
+
+def adamw_err(got, want, p0=None) -> tuple:
+    """Over a leaf, in blocks of 2^26 elements (no leaf-sized temporary):
+    max |got - want|, max of it over ADAMW_RTOL |want| + ADAMW_ATOL_SHARE
+    max |want|, and for a parameter (``p0`` its value before the steps)
+    ||got - want|| over ||want - p0|| (else 0)."""
+    def blocks(t):
+        return t.reshape(-1).split(1 << 26)
+
+    atol = ADAMW_ATOL_SHARE * max(float(b.abs().max()) for b in blocks(want))
+    worst, ratio, off, change = 0.0, 0.0, 0.0, 0.0
+    for i, (a, b) in enumerate(zip(blocks(got), blocks(want))):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / (atol + ADAMW_RTOL * b.abs())).max()))
+        if p0 is not None:
+            off += float(d.double().square().sum())
+            change += float((b - blocks(p0)[i]).double().square().sum())
+    return worst, ratio, (off / change) ** 0.5 if p0 is not None else 0.0
+
+
+def adamw_model(name: str, smi: str) -> dict:
+    import torch
+
+    from repro_torch.kernels.adamw import ops as aw
+
+    params, grads, ms, vs, decay = adamw_leaves(name)
+    n = sum(p.numel() for p in params)
+    table = aw.LeafTable()
+    before = (aw.adamw.launches, aw.adamw.leaves, aw.adamw.elements,
+              aw.adamw.staged, aw.adamw.uploads)
+    p0 = [p.clone() for p in params]
+    twin = [[t.clone() for t in ts] for ts in (params, ms, vs)]
+    for step in range(1, ADAMW_CHECK_STEPS + 1):
+        kw = adamw_step_kwargs(step)
+        got = aw.adamw(params, grads, ms, vs, decay, **kw, grad_scale=0.5,
+                       table=table)
+        want = aw.adamw_ref(twin[0], [g.clone() for g in grads], twin[1],
+                            twin[2], decay, **kw, grad_scale=0.5)
+        torch.cuda.synchronize()
+        norm_err = abs(float(got) - float(want)) / float(want)
+        require(norm_err <= 2e-6, f"adamw {name}: norm {float(got)} against "
+                                  f"the plain version's {float(want)}")
+    errs = {}
+    for kind, gots, wants in zip("pmv", (params, ms, vs), twin):
+        for i, (a, b) in enumerate(zip(gots, wants)):
+            errs[kind, i] = adamw_err(a, b, p0[i] if kind == "p" else None)
+    worst = max(e[0] for e in errs.values())
+    ratios = {k: max(e[1] for (kk, _), e in errs.items() if kk == k)
+              for k in "pmv"}
+    leaf, change = max(((i, e[2]) for (k, i), e in errs.items() if k == "p"),
+                       key=lambda x: x[1])
+    check = (f"max abs err {worst:.3e}; worst element over its limit p "
+             f"{ratios['p']:.3e}, m {ratios['m']:.3e}, v {ratios['v']:.3e}; "
+             f"worst leaf's error over its change {change:.3e} (leaf {leaf}, "
+             f"{tuple(params[leaf].shape)})")
+    require(max(ratios.values()) <= 1.0 and change <= ADAMW_CHANGE_RTOL,
+            f"adamw {name}: off the plain version after {ADAMW_CHECK_STEPS} "
+            f"steps: {check} (limits 1 and {ADAMW_CHANGE_RTOL}; rtol "
+            f"{ADAMW_RTOL}, atol {ADAMW_ATOL_SHARE} of each array's largest)")
+    del twin, p0, got, want
+    kw = adamw_step_kwargs(3)
+
+    def kernel():
+        aw.adamw(params, grads, ms, vs, decay, **kw, grad_scale=0.5,
+                 table=table)
+
+    def plain():
+        aw.adamw_ref(params, grads, ms, vs, decay, **kw, grad_scale=0.5)
+
+    out = {"elements": n, "leaves": len(params), "max_abs_err": worst,
+           "change_err": change, "element_err": ratios,
+           "bound_ms": 32 * n / HBM_BYTES_PER_S * 1e3}
+    out["device_ms"] = device_ms(kernel, ADAMW_ITERS)
+    out["ms"] = cuda_ms(kernel, ADAMW_ITERS, warmup=3)
+    after = (aw.adamw.launches, aw.adamw.leaves, aw.adamw.elements,
+             aw.adamw.staged, aw.adamw.uploads)
+    counts = dict(zip(("launches", "leaves", "elements", "staged", "uploads"),
+                      (a - b for a, b in zip(after, before))))
+    out["plain_device_ms"] = device_ms(plain, ADAMW_ITERS)
+    out["plain_ms"] = cuda_ms(plain, ADAMW_ITERS, warmup=3)
+    torch.cuda.reset_peak_memory_stats()
+    for p, g in zip(params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(params, lr=kw["lr"], betas=(0.9, 0.95),
+                            eps=kw["eps"], weight_decay=0.01, fused=True)
+    out["library_device_ms"] = device_ms(lib.step, ADAMW_ITERS)
+    out["library_ms"] = cuda_ms(lib.step, ADAMW_ITERS, warmup=3)
+    for p in params:
+        p.grad = None
+    del lib
+    say("adamw", f"{name}: {len(params)} leaves, {n} float32 parameters; "
+                 f"{ADAMW_CHECK_STEPS} steps against the plain version: "
+                 f"{check}; kernel {out['device_ms']:.6f} ms "
+                 f"device only, {out['ms']:.6f} ms a call; bound "
+                 f"{out['bound_ms']:.6f} ms (32 B a parameter at "
+                 f"{HBM_BYTES_PER_S:.3g} B/s, "
+                 f"{100 * out['bound_ms'] / out['device_ms']:.1f}%); plain "
+                 f"{out['plain_device_ms']:.6f} / {out['plain_ms']:.6f} ms; "
+                 f"library (torch.optim.AdamW fused, no clip) "
+                 f"{out['library_device_ms']:.6f} / {out['library_ms']:.6f} "
+                 f"ms; counters over the check and the kernel's windows "
+                 f"{counts} ({smi})")
+    require(counts["launches"] >= 2 * ADAMW_CHECK_STEPS
+            and counts["launches"] % 2 == 0 and not counts["staged"]
+            and counts["uploads"] == 1,
+            f"adamw {name}: counters {counts}: want two launches a call, no "
+            f"staged leaf and the leaf table copied once")
+    out["counters"] = counts
+    return out
+
+
+def adamw_phase(smi: str) -> dict:
+    """The AdamW kernel's entry of the kernels' table: DLRM-UIH's numbers,
+    DCN-v2's under ``more``; ``launches`` is the main path's, set there."""
+    from repro_torch.kernels.adamw import ops as aw
+
+    models = {}
+    for name in ADAMW_MODELS:
+        models[name] = adamw_model(name, smi)
+        release(f"adamw {name}")
+    main = models[ADAMW_MODELS[0]]
+    return {"name": "adamw", "route": "CUDA C++",
+            "source": "src/repro_torch/kernels/adamw/csrc/adamw.cu",
+            "replaces": "none: the reference's AdamW is jnp code that XLA "
+                        "fuses",
+            "launches": None, "bound_by": "memory",
+            **{k: main[k] for k in ("max_abs_err", "ms", "device_ms",
+                                    "plain_ms", "plain_device_ms", "bound_ms",
+                                    "library_ms", "library_device_ms")},
+            "more": {"models": models,
+                     "standalone_launches": aw.adamw.launches}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path — FULL DLRM-UIH trained from device-materialized
 # batches
 # ---------------------------------------------------------------------------
@@ -1194,6 +1388,7 @@ def main_path_phase(sim):
     from repro_torch.data import open_feed
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from repro_torch.kernels.adamw import ops as aw
     from repro_torch.kernels.fused import ops
     from repro_torch.models import recsys as R
     from repro_torch.train.optimizer import AdamWConfig
@@ -1223,6 +1418,7 @@ def main_path_phase(sim):
         wait=STEPS - PROFILE_STEPS - 1, warmup=1, active=PROFILE_STEPS,
         repeat=1))
     ops.fused_densify.launches = 0             # count the main path only
+    aw.adamw.launches = aw.adamw.staged = aw.adamw.uploads = 0
     t0 = time.perf_counter()
     try:
         with trace:
@@ -1231,6 +1427,7 @@ def main_path_phase(sim):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.fused_densify.launches
+        adamw = (aw.adamw.launches, aw.adamw.staged, aw.adamw.uploads)
     finally:
         feed.close(timeout=30.0)
     peak = torch.cuda.max_memory_allocated()
@@ -1242,6 +1439,15 @@ def main_path_phase(sim):
     require(seen["off_card"] == 0 and seen["microbatches"] == 2 * STEPS,
             f"batch tensors off the card: {seen}")
     dense_bytes = check_device_feed("main", rec, launches, cs, L_MAIN)
+    # the kernel, two launches a step over every leaf, none staged; the
+    # trainer's leaf table is copied again only when a gradient moved
+    require(adamw[0] == 2 * STEPS and adamw[1] == 0
+            and 1 <= adamw[2] <= STEPS,
+            f"main: AdamW launches, staged leaves and table copies {adamw}; "
+            f"want {2 * STEPS}, 0 and 1 to {STEPS}")
+    say("main", f"AdamW kernel: {adamw[0]} launches over {STEPS} steps, "
+                f"{adamw[1]} staged leaves, leaf table copied {adamw[2]} "
+                f"times")
     say("main", f"{STEPS} AdamW steps (grad_accum 2, batch {BATCH}) in "
                 f"{wall:.3f} s = {STEPS / wall:.3f} steps/s; losses "
                 f"{losses[0]:.5f} -> {losses[-1]:.5f}, all finite; peak "
@@ -1250,7 +1456,7 @@ def main_path_phase(sim):
                 f"(host {cs.starved_host_s:.6f} s, h2d "
                 f"{cs.starved_h2d_s:.6f} s), h2d time {cs.h2d_time_s:.6f} s")
     step_profile(trainer, trace)
-    return launches
+    return launches, adamw[0]
 
 
 def step_profile(trainer, trace) -> None:
@@ -3961,6 +4167,7 @@ def build_kernels() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.adamw import ops as aw
     from repro_torch.kernels.delta_decode import ops as dd
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.fused import ops
@@ -3971,7 +4178,7 @@ def build_kernels() -> None:
         lib.lib()
         return time.perf_counter() - t0
 
-    libs = (ops.LIBRARY, eb.LIBRARY, jg.LIBRARY, dd.LIBRARY)
+    libs = (ops.LIBRARY, eb.LIBRARY, jg.LIBRARY, dd.LIBRARY, aw.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         seconds = list(pool.map(timed_build, libs))
@@ -4003,6 +4210,9 @@ def main() -> int:
 
     build_kernels()
     densify = densify_phase()
+    t0 = time.perf_counter()
+    adamw = adamw_phase(smi)
+    say("adamw", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     model_check_phase()
     t0 = time.perf_counter()
     sim = build_sim()
@@ -4014,7 +4224,7 @@ def main() -> int:
     delta = delta_decode_phase(jf)
     say("kernel", f"standalone kernel phases (featurize, checks, timings) in "
                   f"{time.perf_counter() - t0:.3f} s")
-    densify["launches"] = main_path_phase(sim)
+    densify["launches"], adamw["launches"] = main_path_phase(sim)
     # the training path's parameters, optimizer state and feed died with
     # main_path_phase; hand their memory back before the next phase's
     release("main path")
@@ -4066,7 +4276,8 @@ def main() -> int:
             "bound_by", "library_ms", "library_device_ms")
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
                                    **e.get("more", {})}
-                                  for e in (densify, bag, jagged, delta)]}))
+                                  for e in (densify, bag, jagged, delta,
+                                            adamw)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

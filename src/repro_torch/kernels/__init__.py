@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels for the materialization hot path (Hopper, sm_90a):
-``fused`` (``fused_densify``), ``embedding_bag``, ``jagged``
+"""Hand-written CUDA kernels (Hopper, sm_90a): for the materialization hot
+path ``fused`` (``fused_densify``), ``embedding_bag``, ``jagged``
 (``jagged_to_padded``) and ``delta_decode``, one for each Pallas kernel of
-the reference.
+the reference; and ``adamw``, the optimizer step, which the reference left
+to XLA's fusion.
 
 Each kernel directory holds ``csrc/<name>.cu`` (CUDA C++ with a plain C entry
 point), and ``ops.py`` (the PyTorch wrapper: launches the kernel for a CUDA

@@ -44,6 +44,7 @@ import torch.distributed._functional_collectives as funcol
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ArchSpec
+from repro_torch.kernels.adamw import LeafTable
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.mesh import (
     all_axes_of,
@@ -580,6 +581,7 @@ def _sharded_train_step(loss_fn, opt_cfg: AdamWConfig, mesh, pspec, ospec):
     everything = all_axes_of(mesh)
     p_specs = tree_leaves(pspec, is_leaf=SH.is_spec)
     m_specs = tree_leaves(ospec.m, is_leaf=SH.is_spec)
+    table = LeafTable()
 
     def step(params, opt_state: AdamWState, batch):
         leaves = tree_leaves(params)
@@ -604,6 +606,10 @@ def _sharded_train_step(loss_fn, opt_cfg: AdamWConfig, mesh, pspec, ospec):
                 gathers.append((p, view, dim, z_axes))
             if rest:
                 g = funcol.all_reduce(g, "sum", axes_group(mesh, rest))
+            if dim is not None or rest:
+                # AdamW's kernel reads the storage, which the collective's
+                # wrapper tensor does not hold
+                g = funcol.wait_tensor(g)
             replicas = axes_size(mesh, [a for a in everything
                                         if a not in ms.axes()])
             sq = sq + g.square().sum() / replicas
@@ -615,7 +621,7 @@ def _sharded_train_step(loss_fn, opt_cfg: AdamWConfig, mesh, pspec, ospec):
         view_tree = tree_map(lambda _: next(it_p), params)
         grad_tree = tree_map(lambda _: next(it_g), params)
         _, opt_state, stats = adamw_update(view_tree, grad_tree, opt_state,
-                                           opt_cfg, gnorm=gnorm)
+                                           opt_cfg, gnorm=gnorm, table=table)
         del grad_tree, shards          # the gathers below need their memory
         with torch.no_grad():
             for p, view, dim, z_axes in gathers:

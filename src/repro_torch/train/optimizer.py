@@ -5,7 +5,10 @@ schedule, global-norm clip and ``ndim >= 2`` decay mask, with m/v in
 float32. Scalars (learning rate, bias corrections) are computed in float32
 as the reference computes them. ``adamw_update`` updates parameters, m and v
 IN PLACE: at the full DLRM-UIH width the item table alone is 5.1 GB, and a
-functional update would hold a second copy of every leaf.
+functional update would hold a second copy of every leaf. The update itself
+is ``kernels.adamw``: two launches over every leaf on the card (the
+reference's global-norm clip and per-leaf arithmetic, fused), its plain
+per-leaf passes on the CPU.
 ``make_train_step`` builds the reference's generic step: gradients of any
 ``loss_fn(params, batch)``, optional compression, AdamW.
 """
@@ -18,6 +21,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.adamw import LeafTable, adamw
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -62,39 +66,25 @@ def lr_schedule(step: int, cfg: AdamWConfig) -> np.float32:
     return f32(cfg.lr) * warm * decay
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = None
-    for x in tree_leaves(tree):
-        sq = torch.linalg.vector_norm(x, dtype=torch.float32).square()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
-
-
-def clip_by_global_norm(grads, max_norm: float,
-                        norm: Optional[torch.Tensor] = None):
-    """Scale every leaf by ``min(1, max_norm / (norm + 1e-9))``, in place;
-    ``norm`` defaults to the global norm of ``grads``."""
-    if norm is None:
-        norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    for g in tree_leaves(grads):
-        g.mul_(scale.to(g.dtype))
-    return grads, norm
-
-
 @torch.no_grad()
 def adamw_update(
     params, grads, state: AdamWState, cfg: AdamWConfig,
     decay_mask: Optional[Any] = None, gnorm: Optional[torch.Tensor] = None,
+    grad_scale: float = 1.0, table: Optional[LeafTable] = None,
 ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
-    """One AdamW step. ``grads`` is a float32 tree like ``params`` and is
-    clipped in place; params, m and v are updated in place and returned.
-    ``gnorm`` is the gradients' global norm when the caller took it over
-    shards held by other ranks (default: the norm of ``grads``)."""
-    if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
-    elif gnorm is None:
-        gnorm = global_norm(grads)
+    """One AdamW step. ``grads`` is a float32 tree like ``params``, taken
+    times ``grad_scale`` (``Trainer`` hands the sum over its n microbatches
+    and 1/n) and clipped by its global norm; params, m and v are updated in
+    place and returned. ``gnorm`` is the norm of ``grads`` as handed when
+    the caller took it over shards held by other ranks (default: taken
+    here). The stats' ``grad_norm`` is the norm of the scaled gradients.
+    ``table`` is the kernel's leaf table, kept by the caller beside the
+    state and handed to each of its steps (default: one for this step).
+
+    One ``kernels.adamw`` call over every leaf: the multi-tensor kernel for
+    CUDA leaves, which reads the gradients and never writes them, or its
+    plain per-leaf version for CPU leaves, which scales and clips them in
+    place. Either way ``grads`` is spent: no caller reads it afterwards."""
     step = int(state.step) + 1
     lr = lr_schedule(step, cfg)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -106,15 +96,11 @@ def adamw_update(
         wd_on = [float(p.ndim >= 2) for p in p_leaves]
     else:
         wd_on = [float(x) for x in tree_leaves(decay_mask)]
-    for p, g, m, v, wd in zip(p_leaves, tree_leaves(grads),
-                              tree_leaves(state.m), tree_leaves(state.v),
-                              wd_on):
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        u = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if cfg.weight_decay:
-            u.add_(p.float(), alpha=cfg.weight_decay * wd)
-        p.sub_(u.mul_(float(lr)).to(p.dtype))
+    gnorm = adamw(p_leaves, tree_leaves(grads), tree_leaves(state.m),
+                  tree_leaves(state.v), [cfg.weight_decay * w for w in wd_on],
+                  lr=float(lr), beta1=b1, beta2=b2, bc1=bc1, bc2=bc2,
+                  eps=cfg.eps, clip=cfg.grad_clip, grad_scale=grad_scale,
+                  gnorm=gnorm, table=table)
     new_state = AdamWState(step=torch.full_like(state.step, step),
                            m=state.m, v=state.v)
     return params, new_state, {"grad_norm": gnorm, "lr": float(lr)}
@@ -140,6 +126,7 @@ def make_train_step(
     ``(params, opt_state, {"loss", "grad_norm", "lr"})`` with the
     parameters and moments updated in place. Leaves that do not require
     gradients are switched to require them."""
+    table = LeafTable()
 
     def train_step(params, opt_state: AdamWState, batch):
         for p in tree_leaves(params):
@@ -149,7 +136,8 @@ def make_train_step(
             grads = tree_grads(loss, params)
         if compress is not None:
             grads = compress(grads)
-        params, opt_state, stats = adamw_update(params, grads, opt_state, cfg)
+        params, opt_state, stats = adamw_update(params, grads, opt_state, cfg,
+                                                table=table)
         return params, opt_state, {"loss": loss.detach(), **stats}
 
     return train_step

@@ -3,9 +3,10 @@
 Port of ``repro.train.train_loop``. A step splits the batch into
 ``grad_accum`` microbatches (consecutive row blocks, as the reference's
 reshape does) and runs one ``backward()`` per microbatch: gradients sum in
-the float32 ``.grad`` of the float32 parameters and are divided by the count,
-then optionally int8-compressed with error feedback, then AdamW updates the
-parameters in place. The loss is any ``loss_fn(params, batch) -> scalar``.
+the float32 ``.grad`` of the float32 parameters, then AdamW takes them times
+1/count (in its one pass over them) and updates the parameters in place;
+with compression on, the mean is int8-compressed with error feedback first,
+as the reference does. The loss is any ``loss_fn(params, batch) -> scalar``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.kernels.adamw import LeafTable
 from repro_torch.obs.spans import PhaseClock
 from repro_torch.train.grad_compress import compress_with_feedback, ef_init
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
@@ -69,6 +71,7 @@ class Trainer:
         self.params = params
         self.device = tree_leaves(params)[0].device
         self.opt_state = adamw_init(params)
+        self.opt_table = LeafTable()    # AdamW's leaf table for opt_state
         self.ef_state = ef_init(params) if cfg.compress_grads else None
         self.step = 0
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts)
@@ -94,7 +97,8 @@ class Trainer:
 
     # -- one optimizer step (with optional microbatch accumulation) -----------
     def _grads(self, batch: Dict[str, torch.Tensor]):
-        """Mean loss and mean float32 gradients over the microbatches."""
+        """Mean loss and the float32 gradients summed over the microbatches
+        (``adamw_update`` takes the 1/n, inside its one pass over them)."""
         n = self.cfg.grad_accum
         leaves = tree_leaves(self.params)
         for p in leaves:
@@ -111,15 +115,15 @@ class Trainer:
             loss.backward()
             lsum += loss.detach().float()
 
-        def mean_grad(p):
+        def summed_grad(p):
             if p.grad is None:     # a leaf the loss does not reach
                 return torch.zeros(p.shape, dtype=torch.float32,
                                    device=p.device)
             g = p.grad.float()
             p.grad = None
-            return g.div_(n)
+            return g
 
-        return lsum / n, tree_map(mean_grad, self.params)
+        return lsum / n, tree_map(summed_grad, self.params)
 
     def run_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """batch rows are split into ``grad_accum`` microbatches."""
@@ -132,10 +136,17 @@ class Trainer:
         if ph is not None:
             ph.mark("grads")
             ph.lap("train.grads")
+        n = self.cfg.grad_accum
+        grad_scale = 1.0 / n
         if self.ef_state is not None:
+            # the reference compresses the mean gradient
+            for g in tree_leaves(grads):
+                g.div_(n)
             grads, self.ef_state = compress_with_feedback(grads, self.ef_state)
+            grad_scale = 1.0
         self.params, self.opt_state, stats = adamw_update(
-            self.params, grads, self.opt_state, self.cfg.opt)
+            self.params, grads, self.opt_state, self.cfg.opt,
+            grad_scale=grad_scale, table=self.opt_table)
         del grads
         if ph is not None:
             ph.mark("optimizer")

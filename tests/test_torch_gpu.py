@@ -1009,3 +1009,225 @@ def test_zoo_cell_on_a_thread_mesh_equals_one_rank(cuda, shape, monkeypatch):
             assert g.shape == w.shape
             torch.testing.assert_close(g.float(), w.float(), rtol=1e-5,
                                        atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The multi-tensor AdamW kernel (kernels/adamw)
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain per-leaf version on the same leaves, float32
+# both: the kernel sums the norm's squares in float64 partials (the plain
+# version in float32, in its own order), scales the gradient by one product
+# s * min(1, clip / norm) where the plain version rounds twice, and contracts
+# multiply-adds. Each moves the last place of g, m, v and the update; three
+# steps compound it. rtol 2e-5 on p, m and v; atol 1e-6 for elements near 0
+# (lr 1e-3 times a last-place change of an update of order 1).
+AW_TOL = dict(rtol=2e-5, atol=1e-6)
+AW_STEP = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8)
+
+
+def _aw_case(cuda, rng, weight_decay):
+    """Leaves of lengths 1, 3, 4097 and 70,001 (two chunks, a ragged end),
+    a 2-D leaf, a parameter that is a column slice (not contiguous) and a
+    parameter and second moment that are views at odd offsets of flat
+    buffers (not 16-byte aligned), as the benchmark's weights are."""
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    shapes = [(1,), (3,), (4097,), (70_001,), (96, 40), (50, 30), (50, 100)]
+    params = [f32(*s) for s in shapes[:5]]
+    wide = f32(50, 60)
+    params.append(wide[:, ::2])
+    flat = f32(1 + 5000)
+    params.append(flat[1:].view(50, 100))
+    ms = [f32(*s, scale=0.1) for s in shapes]
+    vs = [f32(*s, scale=0.1).abs() for s in shapes]
+    flat_v = f32(3 + 5000).abs()
+    flat_v[3:] = vs[-1].flatten()
+    vs[-1] = flat_v[3:].view(50, 100)
+    assert not params[5].is_contiguous()
+    assert params[6].data_ptr() % 16 and vs[6].data_ptr() % 16
+    decay = [weight_decay * (len(s) >= 2) for s in shapes]
+    return params, ms, vs, decay
+
+
+def _aw_kwargs(step, clip, grad_scale):
+    f = np.float32
+    return dict(AW_STEP, bc1=float(f(1) - f(0.9) ** f(step)),
+                bc2=float(f(1) - f(0.95) ** f(step)), clip=clip,
+                grad_scale=grad_scale)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+@pytest.mark.parametrize("clip", [0.5, 1e6, 0.0])   # active, inactive, off
+@pytest.mark.parametrize("grad_scale,given", [(1.0, False), (0.5, False),
+                                              (1.0, True), (0.5, True)])
+def test_adamw_kernel_equals_plain_version(cuda, weight_decay, clip,
+                                           grad_scale, given):
+    from repro_torch.kernels.adamw import ops as aw
+
+    rng = np.random.default_rng(7)
+    params, ms, vs, decay = _aw_case(cuda, rng, weight_decay)
+    plain = [[t.clone() for t in ts] for ts in (params, ms, vs)]
+    before = (aw.adamw.launches, aw.adamw.leaves, aw.adamw.staged)
+    for step in (1, 2, 3):
+        grads = [torch.from_numpy(rng.standard_normal(p.shape).astype(
+            np.float32)).to(cuda) for p in params]
+        kept = [g.clone() for g in grads]
+        gnorm = aw.global_norm(grads) if given else None
+        kw = _aw_kwargs(step, clip, grad_scale)
+        got = aw.adamw(params, grads, ms, vs, decay, **kw, gnorm=gnorm)
+        want = aw.adamw_ref(*plain[:1], [g.clone() for g in grads],
+                            *plain[1:], decay, **kw, gnorm=gnorm)
+        torch.cuda.synchronize()
+        # the norm: float64 partials against a float32 reduction
+        torch.testing.assert_close(got, want, rtol=2e-6, atol=0)
+        assert all(torch.equal(g, k) for g, k in zip(grads, kept))
+    # the column slice was updated through a copy written back into it
+    for got, want in zip(params + ms + vs, sum(plain, [])):
+        torch.testing.assert_close(got, want, **AW_TOL)
+    launches = 3 * (1 if given else 2)
+    assert (aw.adamw.launches, aw.adamw.leaves, aw.adamw.staged) == (
+        before[0] + launches, before[1] + 3 * 7, before[2] + 3)
+
+
+def test_adamw_kernel_is_deterministic_and_copies_its_table_once(cuda):
+    """Two runs from equal states read equal bits (the norm's partials are
+    summed in one fixed order); the leaf table a state keeps is copied to
+    the card once while no pointer changes, and again when the gradients
+    move; without a table each call copies its own."""
+    from repro_torch.kernels.adamw import ops as aw
+
+    rng = np.random.default_rng(3)
+    params, ms, vs, decay = _aw_case(cuda, rng, 0.1)
+    twin = [[t.clone() for t in ts] for ts in (params, ms, vs)]
+    grads = [torch.from_numpy(rng.standard_normal(p.shape).astype(
+        np.float32) * 50).to(cuda) for p in params]
+    kw = _aw_kwargs(1, 1.0, 0.5)
+    table, twin_table = aw.LeafTable(), aw.LeafTable()
+    uploads = aw.adamw.uploads
+    norms = [aw.adamw(params, grads, ms, vs, decay, **kw, table=table)
+             for _ in range(2)]
+    assert aw.adamw.uploads == uploads + 1
+    twin_grads = [g.clone() for g in grads]
+    twin_norms = [aw.adamw(twin[0], twin_grads, twin[1], twin[2], decay,
+                           **kw, table=twin_table) for _ in range(2)]
+    assert aw.adamw.uploads == uploads + 2
+    torch.cuda.synchronize()
+    assert [n.item() for n in norms] == [n.item() for n in twin_norms]
+    for a, b in zip(params + ms + vs, sum(twin, [])):
+        assert torch.equal(a, b)
+    aw.adamw(params, twin_grads, ms, vs, decay, **kw, table=table)
+    assert aw.adamw.uploads == uploads + 3
+    for _ in range(2):
+        aw.adamw(params, twin_grads, ms, vs, decay, **kw)
+    assert aw.adamw.uploads == uploads + 5
+
+
+def test_adamw_update_on_card_never_runs_the_plain_passes(cuda, monkeypatch):
+    """``adamw_update`` over CUDA leaves launches the kernel, two launches
+    whatever the leaf count, one with a given norm; with the plain version
+    broken it still comes right."""
+    from repro_torch.kernels.adamw import ops as aw
+    from repro_torch.train import optimizer as topt
+
+    def boom(*a, **k):
+        raise AssertionError("plain AdamW called for CUDA leaves")
+
+    rng = np.random.default_rng(5)
+    params, _, _, _ = _aw_case(cuda, rng, 0.0)
+    tree = {f"l{i}": p for i, p in enumerate(params)}
+    grads = {k: torch.randn(v.shape, device=cuda) * 3 for k, v in tree.items()}
+    cfg = topt.AdamWConfig(lr=1e-2, warmup_steps=0)
+    f = np.float32
+    want = [p.clone() for p in params]
+    aw.adamw_ref(want, [g.clone() for g in grads.values()],
+                 [torch.zeros_like(p) for p in want],
+                 [torch.zeros_like(p) for p in want],
+                 [cfg.weight_decay * (p.ndim >= 2) for p in want],
+                 lr=float(topt.lr_schedule(1, cfg)), beta1=cfg.beta1,
+                 beta2=cfg.beta2, bc1=float(f(1) - f(cfg.beta1)),
+                 bc2=float(f(1) - f(cfg.beta2)), eps=cfg.eps,
+                 clip=cfg.grad_clip)
+    monkeypatch.setattr(aw, "adamw_ref", boom)
+    monkeypatch.setattr(aw, "global_norm", boom)
+    launches = aw.adamw.launches
+    state = topt.adamw_init(tree)
+    _, state, stats = topt.adamw_update(tree, grads, state, cfg)
+    assert aw.adamw.launches == launches + 2
+    assert stats["grad_norm"].device.type == "cuda"
+    for got, w in zip(tree.values(), want):
+        torch.testing.assert_close(got, w, **AW_TOL)
+    topt.adamw_update(tree, grads, state, cfg,
+                      gnorm=torch.ones((), device=cuda))
+    assert aw.adamw.launches == launches + 3
+    # a functional collective's result not waited for holds no storage of
+    # its own: refused before a launch could read address 0
+    from torch.distributed._functional_collectives import (
+        AsyncCollectiveTensor)
+    grads["l0"] = AsyncCollectiveTensor(grads["l0"])
+    with pytest.raises(ValueError, match="no storage"):
+        topt.adamw_update(tree, grads, state, cfg)
+    assert aw.adamw.launches == launches + 3
+
+
+def test_trainer_step_two_adamw_launches_and_no_leaf_sized_buffer(
+        cuda, monkeypatch):
+    """A ``Trainer`` step on the card (grad_accum 2) makes two AdamW
+    launches over its 13 leaves, and AdamW allocates less than the largest
+    leaf (its plain passes hold two leaf-sized temporaries); the steps
+    agree with the same trainer on the CPU, which runs the plain passes."""
+    from repro_torch.kernels.adamw import ops as aw
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+    from repro_torch.tree import to_parameter_dict
+
+    rng = np.random.default_rng(11)
+    shapes = [(1 << 22,)] + [(int(n), 3) for n in rng.integers(1, 300, 12)]
+    init = {f"w{i:02d}": rng.standard_normal(s).astype(np.float32)
+            for i, s in enumerate(shapes)}
+    x = rng.standard_normal(8).astype(np.float32)
+
+    def loss_fn(params, batch):
+        k = batch["x"].mean()
+        return sum(((p * k) ** 2).mean() for p in params.values())
+
+    grown = []
+    update = train_loop.adamw_update
+
+    def measured(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = update(*a, **k)
+        torch.cuda.synchronize()
+        grown.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    cfg = TrainerConfig(opt=AdamWConfig(lr=1e-2, warmup_steps=0),
+                        grad_accum=2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = to_parameter_dict({k: torch.tensor(v, device=dev)
+                                    for k, v in init.items()})
+        runs[str(dev)] = t = Trainer(loss_fn, params, cfg)
+        launches = aw.adamw.launches
+        if dev != "cpu":
+            monkeypatch.setattr(train_loop, "adamw_update", measured)
+        for _ in range(3):
+            t.run_step({"x": torch.from_numpy(x).to(dev)})
+        if dev != "cpu":
+            assert aw.adamw.launches == launches + 6
+        else:
+            assert aw.adamw.launches == launches
+    largest = 4 << 22
+    assert len(grown) == 3 and max(grown) < largest, grown
+    cpu, card = runs["cpu"], runs["cuda"]
+    for a, b in zip(card.history, cpu.history):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-5)
+    for k in init:
+        torch.testing.assert_close(card.params[k].detach().cpu(),
+                                   cpu.params[k].detach(), **AW_TOL)

@@ -13,8 +13,10 @@ the ranks' results in rank order from the same processes, a rank that
 raises or sleeps past the time limit, each collective kind the train
 cells call, and SMOKE train cells' rank-local steps against one rank on
 the card (float32, TF32 off: ``rtol = atol = 1e-5`` for the loss and the
-gradient norm, ``1e-5`` relative Frobenius a leaf). None of them launches
-a kernel of the port.
+gradient norm, ``1e-5`` relative Frobenius a leaf). The train steps launch
+the port's AdamW kernel (``kernels.adamw``, with the norm the ranks took
+together) in every rank and in the one-rank reference; no other kernel of
+the port runs.
 """
 import os
 

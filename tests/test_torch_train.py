@@ -16,6 +16,7 @@ from repro.train import grad_compress as jgc
 from repro.train import optimizer as jopt
 from repro.train.train_loop import Trainer as JTrainer
 from repro.train.train_loop import TrainerConfig as JTrainerConfig
+from repro_torch.kernels.adamw import ops as aw_ops
 from repro_torch.train import grad_compress as tgc
 from repro_torch.train import optimizer as topt
 from repro_torch.train.train_loop import Trainer as TTrainer
@@ -57,7 +58,12 @@ def test_lr_schedule_matches_reference():
                                    rtol=1e-6)
 
 
-def test_three_adamw_steps_match_including_stacked_norm_decay():
+def _three_adamw_steps(grad_scale=1.0, given=False):
+    """Three AdamW steps and one with zero gradients, port against
+    reference. The port is handed each gradient over ``grad_scale`` (a
+    power of two: exact) with ``grad_scale``, as ``Trainer`` hands the
+    microbatch sum and 1/n, and with ``given`` the norm of what it is
+    handed, as the ZeRO step hands the norm over every rank's shards."""
     rng = np.random.default_rng(0)
     params = _tree(rng)
     kw = dict(lr=0.05, warmup_steps=0, total_steps=10, weight_decay=0.1,
@@ -66,12 +72,20 @@ def test_three_adamw_steps_match_including_stacked_norm_decay():
     jp, js = params, jopt.adamw_init(params)
     tp = _torch_tree(params)
     ts = topt.adamw_init(tp)
+
+    def port_step(tp, ts, grads):
+        handed = _torch_tree(jax.tree.map(
+            lambda g: g / np.float32(grad_scale), grads))
+        gnorm = (aw_ops.global_norm(tree_leaves(handed)) if given else None)
+        return topt.adamw_update(tp, handed, ts, tcfg, gnorm=gnorm,
+                                 grad_scale=grad_scale)
+
     for _ in range(3):
         grads = _tree(rng)
         grads["seq_blocks"]["ln1"] = rng.standard_normal((2, 16)).astype(
             np.float32)
         jp, js, jstats = jopt.adamw_update(jp, grads, js, jcfg)
-        tp, ts, tstats = topt.adamw_update(tp, _torch_tree(grads), ts, tcfg)
+        tp, ts, tstats = port_step(tp, ts, grads)
         np.testing.assert_allclose(float(tstats["grad_norm"]),
                                    float(jstats["grad_norm"]), rtol=1e-6)
         np.testing.assert_allclose(tstats["lr"], float(jstats["lr"]),
@@ -84,10 +98,84 @@ def test_three_adamw_steps_match_including_stacked_norm_decay():
     z = {k: np.zeros_like(v) for k, v in params.items() if k != "seq_blocks"}
     z["seq_blocks"] = {"ln1": np.zeros((2, 16), np.float32)}
     before = tp["seq_blocks"]["ln1"].clone()
-    tp, ts, _ = topt.adamw_update(tp, _torch_tree(z), ts, tcfg)
+    tp, ts, _ = port_step(tp, ts, z)
     jp, js, _ = jopt.adamw_update(jp, z, js, jcfg)
     assert not torch.equal(tp["seq_blocks"]["ln1"], before)
     _assert_tree_close(tp, jp)
+
+
+def test_three_adamw_steps_match_including_stacked_norm_decay():
+    _three_adamw_steps()
+
+
+@pytest.mark.parametrize("grad_scale,given", [(0.5, False), (0.25, False),
+                                              (1.0, True), (0.5, True)])
+def test_adamw_takes_the_microbatch_scale_and_a_given_norm(grad_scale,
+                                                          given):
+    _three_adamw_steps(grad_scale, given)
+
+
+def _leaves(shapes, dtype=torch.float32):
+    return [torch.ones(s, dtype=dtype) for s in shapes]
+
+
+_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.95, bc1=0.1, bc2=0.05, eps=1e-8,
+              clip=1.0)
+
+
+@pytest.mark.parametrize("case", ["lists", "shapes", "dtype", "devices",
+                                  "empty", "gnorm"])
+def test_adamw_wrapper_refuses_what_it_cannot_update(case):
+    p, g, m, v = (_leaves([(3, 2), (4,)]) for _ in range(4))
+    decay = [0.01, 0.0]
+    gnorm = None
+    want = ValueError
+    if case == "lists":
+        g = g[:1]
+    elif case == "shapes":
+        v[1] = torch.ones(5)
+    elif case == "dtype":
+        g = _leaves([(3, 2), (4,)], torch.float64)
+        want = TypeError
+    elif case == "devices":        # neither all CUDA nor all CPU
+        m[0] = torch.ones((3, 2), device="meta")
+    elif case == "empty":
+        p = g = m = v = decay = []
+    else:
+        gnorm = torch.ones(2)
+    with pytest.raises(want):
+        aw_ops.adamw(p, g, m, v, decay, **_HYPER, gnorm=gnorm)
+
+
+def test_adamw_on_cpu_leaves_runs_the_plain_version(monkeypatch):
+    calls = []
+    plain = aw_ops.adamw_ref
+    monkeypatch.setattr(aw_ops, "adamw_ref",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    before = (aw_ops.adamw.launches, aw_ops.adamw.leaves,
+              aw_ops.adamw.elements, aw_ops.adamw.uploads)
+    p, g, m, v = (_leaves([(3, 2), (4,)]) for _ in range(4))
+    table = aw_ops.LeafTable()
+    norm = aw_ops.adamw(p, g, m, v, [0.01, 0.0], **_HYPER, grad_scale=0.5,
+                        table=table)
+    assert calls == [1] and table.key is None    # nothing copied to a card
+    assert float(norm) == pytest.approx(0.5 * 10 ** 0.5, rel=1e-6)
+    assert (aw_ops.adamw.launches, aw_ops.adamw.leaves,
+            aw_ops.adamw.elements, aw_ops.adamw.uploads) == before
+
+
+def test_adamw_leaf_table_chunks_and_alignment():
+    c = aw_ops.CHUNK
+    ptrs = [[256, 260, 512], [1024, 2048, 4096], [16, 16, 24], [32, 36, 48]]
+    rows = aw_ops.leaf_rows(ptrs, [1, 2 * c + 3, c], [0.0, 0.01, 0.02])
+    assert rows.dtype.itemsize == 56            # the kernel's struct Leaf
+    assert rows["chunk0"].tolist() == [0, 1, 4]
+    assert rows["n"].tolist() == [1, 2 * c + 3, c]
+    # bit i: array i (p, g, m, v) starts 16-byte aligned
+    assert rows["aligned"].tolist() == [1 | 2 | 4 | 8, 2 | 4, 1 | 2 | 8]
+    assert rows["p"].tolist() == ptrs[0] and rows["v"].tolist() == ptrs[3]
+    np.testing.assert_array_equal(rows["decay"],
+                                  np.float32([0.0, 0.01, 0.02]))
 
 
 def _quad(seed=0):
