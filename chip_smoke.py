@@ -20,6 +20,13 @@ paths over one ``ProductionSim``:
    plain version, ``torch.optim.AdamW(fused=True)`` (the yardstick; the port
    never calls it) and the bound of 32 B a parameter, with the kernel's
    launch counters.
+0b. The grouped expert product (``kernels/grouped_gemm``) at the
+   DeepSeek-V2-Lite cell's shapes: each form held against its plain version
+   over even and uneven group loads, then timed beside its bound, the plain
+   version and ``torch._grouped_mm`` (the yardstick); then one full-width
+   dropless MoE layer of that cell, forward and backward through
+   ``moe.moe_dropless``, with its 6 launches counted and its output and
+   gradients held against the same layer through the plain version.
 0. The standalone kernels: the sim's last 32 training examples, materialized
    and featurized as the feed's host plane does (L=2048), through
    ``jagged_to_padded`` (each trait arena, and (N, 128) float32 and bf16 row
@@ -862,6 +869,252 @@ def adamw_phase(smi: str) -> dict:
                                     "library_ms", "library_device_ms")},
             "more": {"models": models,
                      "standalone_launches": aw.adamw.launches}}
+
+
+# The grouped expert product at the DeepSeek-V2-Lite cell's shapes: a
+# microbatch of 8 x 2048 tokens at top-6 gives the path 98,304 rows, of which
+# the card's 8 held experts get 1,536 each on average (12,288); w_in's
+# (2048, 2 x 1408) and w_out's (1408, 2048), each form.
+GG_ROWS = 8 * 2048 * 6
+GG_LOAD = 1536
+GG_EXPERTS = 8
+# uneven loads for the check: groups that end inside a 128-row tile, an empty
+# group and a group of one row, ~1,520 rows an expert as on the cell's path
+GG_UNEVEN = (1536, 0, 1700, 1, 2900, 1871, 2047, 2129)
+# the cell's dropless MoE layer: (batch, length, d) and its MoEConfig
+DL_SHAPE = (8, 2048, 2048)
+DL_MOE = dict(n_experts=64, top_k=6, d_ff=1408, n_shared=2,
+              capacity_factor=None, n_held=8, norm_topk_prob=False,
+              aux_alpha=0.001)
+GG_SHAPES = (("w_in", 2048, 2816), ("w_out", 1408, 2048))
+GG_ITERS = 20
+GG_RTOL = 1e-2             # bf16 results of float32 sums: ~2^-8 a value
+
+
+def grouped_library(args, off, mode):
+    """``torch._grouped_mm`` computing the same form (the yardstick; the
+    port never calls it), or None where this torch has none for it."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    ends = off[1:].to(torch.int32)
+    a, b = args
+    if mode == gg.FWD:
+        pair = (a, b.transpose(-2, -1).contiguous().transpose(-2, -1))
+    elif mode == gg.DX:
+        pair = (a, b.transpose(-2, -1))
+    else:
+        pair = (a.T.contiguous(), b)       # (K, R), the rows grouped
+    call = (lambda: fn(pair[0], pair[1], offs=ends))
+    try:
+        call()
+    except (RuntimeError, TypeError, ValueError) as e:
+        say("grouped_gemm", f"torch._grouped_mm refuses form {mode}: "
+                            f"{str(e).splitlines()[0][:160]}")
+        return None
+    return call
+
+
+def grouped_gemm_forms(name: str, k: int, n: int, gen, off, smi: str
+                      ) -> dict:
+    """Each form of the grouped product over one weight's shape: checked
+    against the plain version in float32, timed beside its bound, the plain
+    version and ``torch._grouped_mm``."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+
+    rows = int(off[-1])
+    uneven = torch.tensor((0,) + GG_UNEVEN, device=DEVICE).cumsum(0)
+    a, w, dy = draw(GG_ROWS, k), draw(GG_EXPERTS, k, n), draw(GG_ROWS, n)
+    forms = {}
+    for form, mode, args in (("fwd", gg.FWD, (a, w)), ("dx", gg.DX, (dy, w)),
+                             ("dw", gg.DW, (a, dy))):
+        err = 0.0
+        for at in (off, uneven):
+            got = gg.grouped_gemm(*args, at, mode).float()
+            want = gg.grouped_gemm_ref(*(x.float() for x in args), at, mode)
+            err = max(err, float(((got - want).abs()
+                                  / (want.abs() + 1.0)).max()))
+            require(mode == gg.DW or not got[int(at[-1]):].any(),
+                    f"grouped_gemm {name} {form}: rows past the groups not 0")
+            del got, want
+        require(err <= GG_RTOL, f"grouped_gemm {name} {form}: {err:.3e} off "
+                                f"the plain version (even and uneven loads)")
+
+        def kernel(args=args, mode=mode):
+            gg.grouped_gemm(*args, off, mode)
+
+        def plain(args=args, mode=mode):
+            gg.grouped_gemm_ref(*args, off, mode)
+
+        r = {"max_rel_err": err,
+             "bound_ms": 2 * rows * k * n / BF16_PEAK_FLOPS * 1e3,
+             "device_ms": device_ms(kernel, GG_ITERS, "grouped_gemm_kernel"),
+             "ms": cuda_ms(kernel, GG_ITERS, warmup=3),
+             "plain_device_ms": device_ms(plain, GG_ITERS),
+             "plain_ms": cuda_ms(plain, GG_ITERS, warmup=3)}
+        lib = grouped_library(args, off, mode)
+        r["library_device_ms"] = device_ms(lib, GG_ITERS) if lib else None
+        r["library_ms"] = cuda_ms(lib, GG_ITERS, warmup=3) if lib else None
+        forms[f"{name}.{form}"] = r
+        say("grouped_gemm",
+            f"{name} {form} ({rows} of {GG_ROWS} rows, K {k}, N {n}): err "
+            f"{err:.2e}; kernel {r['device_ms']:.6f} ms device, "
+            f"{r['ms']:.6f} a call; bound {r['bound_ms']:.6f} "
+            f"({100 * r['bound_ms'] / r['device_ms']:.1f}%); plain "
+            f"{r['plain_device_ms']:.6f} / {r['plain_ms']:.6f}; "
+            f"torch._grouped_mm {r['library_device_ms']} / {r['library_ms']} "
+            f"({smi})")
+    return forms
+
+
+def grouped_gemm_phase(smi: str) -> dict:
+    """The grouped product's entry of the kernels' table (``w_in``'s forward
+    form; every form under ``more``)."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    off = torch.arange(GG_EXPERTS + 1, device=DEVICE,
+                       dtype=torch.int64) * GG_LOAD
+    before = gg.grouped_gemm.launches
+    forms = {}
+    for name, k, n in GG_SHAPES:
+        forms.update(grouped_gemm_forms(name, k, n, gen, off, smi))
+        release(f"grouped_gemm {name}")
+    main = forms["w_in.fwd"]
+    return {"name": "grouped_gemm", "route": "CUDA C++",
+            "source": "src/repro_torch/kernels/grouped_gemm/csrc/"
+                      "grouped_gemm.cu",
+            "replaces": "none: the reference's MoE runs a batched product "
+                        "over a fixed capacity",
+            "launches": None, "bound_by": "tensor cores",
+            "max_abs_err": main["max_rel_err"],
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "plain_device_ms", "bound_ms",
+                                    "library_ms", "library_device_ms")},
+            "more": {"forms": forms,
+                     "standalone_launches": gg.grouped_gemm.launches
+                     - before}}
+
+
+class PlainGroupedMM:
+    """``grouped_mm`` with every form run by ``grouped_gemm_ref`` (the
+    plain version), the same autograd as the kernel's; each call's offsets
+    kept in ``offsets``."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.kernels.grouped_gemm import ops as gg
+
+        self.offsets = []
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, a, w, off):
+                ctx.save_for_backward(a, w, off)
+                return gg.grouped_gemm_ref(a, w, off, gg.FWD)
+
+            @staticmethod
+            def backward(ctx, dy):
+                a, w, off = ctx.saved_tensors
+                return (gg.grouped_gemm_ref(dy, w, off, gg.DX),
+                        gg.grouped_gemm_ref(a, dy, off, gg.DW), None)
+
+        self.fn = Fn
+
+    def __call__(self, a, w, offsets):
+        self.offsets.append(offsets)
+        return self.fn.apply(a, w, offsets)
+
+
+def dropless_phase(smi: str) -> int:
+    """One full-width dropless MoE layer of the DeepSeek-V2-Lite cell on
+    the card, forward and backward through ``moe.moe_dropless`` (the path
+    the grouped kernel serves): 8 x 2048 tokens of d 2048, the real router
+    over 64 experts, top-6, 8 held, 2 shared. Requires the kernel's 6
+    launches (2 forward, DX and DW of each weight), the layer's counters
+    (every token, no pair dropped) and the operations counted, and holds
+    the output and the gradients of x, ``w_in`` and ``w_out`` against the
+    same layer run through the plain version on the same offsets. Returns
+    the launches."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.models import moe as M
+
+    cfg = M.MoEConfig(**DL_MOE)
+    b, n, d = DL_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = M.init_moe(gen, d, cfg, device=DEVICE)
+    x0 = torch.randn(DL_SHAPE, generator=gen, device=DEVICE).bfloat16()
+    names = ("x", "w_in", "w_out")
+
+    def layer():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        x = x0.clone().requires_grad_()
+        out, aux = M.moe_dropless(p, x, cfg)
+        (out.float().square().mean() + aux).backward()
+        return out.detach(), dict(zip(names, (x.grad, p["w_in"].grad,
+                                              p["w_out"].grad)))
+
+    kernel_mm, plain_mm = M.grouped_mm, PlainGroupedMM()
+    seen = []
+
+    def counted_mm(a, w, offsets):
+        seen.append(offsets)
+        return kernel_mm(a, w, offsets)
+
+    torch.cuda.synchronize()
+    gg.grouped_gemm.launches = 0              # count this path only
+    M.STATS.reset()
+    f0 = gg.flops()
+    M.grouped_mm = counted_mm
+    try:
+        out, grads = layer()
+        torch.cuda.synchronize()
+        launches, counts = gg.grouped_gemm.launches, M.STATS.read()
+        flops = gg.flops() - f0
+        M.grouped_mm = plain_mm
+        want_out, want = layer()
+    finally:
+        M.grouped_mm = kernel_mm
+    pairs = counts["pairs_held"]
+    require(launches == 6, f"dropless layer: {launches} grouped_gemm "
+                           f"launches, want 6")
+    require(counts["tokens"] == b * n and counts["dropped"] == 0
+            and 0 < pairs <= b * n * cfg.top_k,
+            f"dropless layer: counters {counts}")
+    require(flops == 3 * 2 * pairs * (d * 2 * cfg.d_ff + cfg.d_ff * d),
+            f"dropless layer: {flops} operations counted for {pairs} pairs")
+    require(len(seen) == len(plain_mm.offsets) == 2
+            and all(torch.equal(a, b) for a, b in zip(seen, plain_mm.offsets)),
+            "dropless layer: the plain run routed to other offsets")
+    loads = (seen[0][1:] - seen[0][:-1]).tolist()
+    errs = {"out": float((out.float() - want_out.float()).norm()
+                         / want_out.float().norm())}
+    for k in names:
+        errs[k] = float((grads[k].float() - want[k].float()).norm()
+                        / want[k].float().norm())
+    require(max(errs.values()) <= GG_RTOL,
+            f"dropless layer off the plain version: {errs} (limit {GG_RTOL}, "
+            f"bf16 results of float32 sums)")
+    say("dropless", f"{b} x {n} tokens of d {d}, {cfg}: "
+                    f"{launches} grouped_gemm launches; counters {counts}; "
+                    f"loads {loads}; {flops} operations counted; norm errors "
+                    f"against the plain version on the same offsets {errs} "
+                    f"({smi})")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4171,6 +4424,7 @@ def build_kernels() -> None:
     from repro_torch.kernels.delta_decode import ops as dd
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.fused import ops
+    from repro_torch.kernels.grouped_gemm import ops as gg
     from repro_torch.kernels.jagged import ops as jg
 
     def timed_build(lib):
@@ -4178,7 +4432,8 @@ def build_kernels() -> None:
         lib.lib()
         return time.perf_counter() - t0
 
-    libs = (ops.LIBRARY, eb.LIBRARY, jg.LIBRARY, dd.LIBRARY, aw.LIBRARY)
+    libs = (ops.LIBRARY, eb.LIBRARY, jg.LIBRARY, dd.LIBRARY, aw.LIBRARY,
+            gg.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         seconds = list(pool.map(timed_build, libs))
@@ -4213,6 +4468,12 @@ def main() -> int:
     t0 = time.perf_counter()
     adamw = adamw_phase(smi)
     say("adamw", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
+    t0 = time.perf_counter()
+    grouped = grouped_gemm_phase(smi)
+    release("grouped_gemm")
+    grouped["launches"] = dropless_phase(smi)
+    release("dropless layer")
+    say("grouped_gemm", f"phase in {time.perf_counter() - t0:.3f} s ({smi})")
     model_check_phase()
     t0 = time.perf_counter()
     sim = build_sim()
@@ -4277,7 +4538,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
                                    **e.get("more", {})}
                                   for e in (densify, bag, jagged, delta,
-                                            adamw)]}))
+                                            adamw, grouped)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

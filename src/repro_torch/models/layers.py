@@ -89,21 +89,69 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float = 1e6, device=None
-                     ) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's stretch of RoPE (a config's ``rope_scaling`` of type
+    ``yarn``), as DeepSeek-V2's published modelling code applies it."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def correction_range(self, dim: int, theta: float) -> Tuple[int, int]:
+        """(low, high): the frequency indices between which the ramp runs
+        from the original frequencies to the stretched ones."""
+        def at(rotations):
+            return dim * math.log(self.original_max_position / (
+                rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+        return (max(math.floor(at(self.beta_fast)), 0),
+                min(math.ceil(at(self.beta_slow)), dim - 1))
+
+    @staticmethod
+    def _mscale(factor: float, mscale: float) -> float:
+        return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+    def attention_scale(self) -> float:
+        """What the softmax scale is multiplied by: ``mscale(all_dim)^2``
+        (1 without ``mscale_all_dim``)."""
+        if not self.mscale_all_dim:
+            return 1.0
+        return self._mscale(self.factor, self.mscale_all_dim) ** 2
+
+    def cos_sin_scale(self) -> float:
+        return (self._mscale(self.factor, self.mscale)
+                / self._mscale(self.factor, self.mscale_all_dim))
+
+
+def rope_frequencies(head_dim: int, theta: float = 1e6, device=None,
+                     yarn: Optional[YaRN] = None) -> torch.Tensor:
     exponent = (torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim)
-    return 1.0 / (theta ** exponent)
+    freqs = 1.0 / (theta ** exponent)
+    if yarn is None:
+        return freqs
+    low, high = yarn.correction_range(head_dim, theta)
+    ramp = (torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+            - low) / max(high - low, 1e-3)
+    keep = 1.0 - ramp.clamp(0.0, 1.0)      # 1: the original frequency
+    return freqs / yarn.factor * (1.0 - keep) + freqs * keep
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6
-               ) -> torch.Tensor:
-    """x: [..., S, H, Dh]; positions: [..., S] (int)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6,
+               yarn: Optional[YaRN] = None) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: [..., S] (int). The rotation pairs
+    the two halves of Dh (DeepSeek's published code pairs interleaved
+    dimensions: the same rotation after a fixed permutation of them)."""
     dh = x.shape[-1]
-    freqs = rope_frequencies(dh, theta, x.device)           # (dh/2,)
+    freqs = rope_frequencies(dh, theta, x.device, yarn)     # (dh/2,)
     ang = positions[..., None].float() * freqs              # [..., S, dh/2]
     cos = torch.cos(ang)[..., None, :]                      # [..., S, 1, dh/2]
     sin = torch.sin(ang)[..., None, :]
+    if yarn is not None and yarn.cos_sin_scale() != 1.0:
+        cos, sin = cos * yarn.cos_sin_scale(), sin * yarn.cos_sin_scale()
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -151,16 +199,18 @@ def _attend_chunked(
     causal: bool,
     q_chunk: int,
     scores_f32: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Scores, scale, mask and softmax in float32 with ``scores_f32``, else
-    in ``v.dtype`` (the reference's ``preferred_element_type``); the value
-    product in the compute dtype."""
+    """Scores, scale (default ``1/sqrt(Dh)``), mask and softmax in float32
+    with ``scores_f32``, else in ``v.dtype`` (the reference's
+    ``preferred_element_type``); the value product in the compute dtype."""
     b, sq, h, dh = q.shape
     hk = k.shape[2]
     dv = v.shape[3]
     rep = h // hk
     acc_dt = torch.float32 if scores_f32 else v.dtype
-    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=acc_dt)
+    scale = torch.tensor(1.0 / math.sqrt(dh) if scale is None else scale,
+                         dtype=acc_dt)
     qc = min(q_chunk, sq)
     k_acc = k.to(acc_dt)
     outs = []
@@ -445,6 +495,14 @@ class MLAConfig:
     v_head_dim: int = 128
     rope_theta: float = 1e4
     q_chunk: int = 1024
+    yarn: Optional[YaRN] = None
+
+    @property
+    def softmax_scale(self) -> float:
+        """``(nope + rope)^-1/2``, times YaRN's ``mscale^2`` if stretched."""
+        scale = 1.0 / math.sqrt(self.qk_nope_dim + self.qk_rope_dim)
+        return scale if self.yarn is None else (
+            scale * self.yarn.attention_scale())
 
 
 def init_mla(gen: torch.Generator, cfg: MLAConfig, device="cuda",
@@ -475,7 +533,7 @@ def _mla_q(params: Params, x: torch.Tensor, positions: torch.Tensor,
     q = (x @ params["wq"].to(x.dtype)).reshape(
         b, s, -1, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_pe = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
-    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta, cfg.yarn)
 
 
 def mla_new_cache_entries(params: Params, x: torch.Tensor,
@@ -485,7 +543,7 @@ def mla_new_cache_entries(params: Params, x: torch.Tensor,
     dt = x.dtype
     c_kv = rms_norm(x @ params["w_dkv"].to(dt), params["kv_norm"])
     k_pe = apply_rope((x @ params["w_k_rope"].to(dt))[:, :, None, :],
-                      positions, cfg.rope_theta)[:, :, 0, :]
+                      positions, cfg.rope_theta, cfg.yarn)[:, :, 0, :]
     return c_kv, k_pe
 
 
@@ -495,10 +553,12 @@ def mla_attention_train(
     positions: torch.Tensor,      # (B, S)
     cfg: MLAConfig,
     mesh=None,
+    kv_mask: Optional[torch.Tensor] = None,   # (B, S) keys that count
 ) -> torch.Tensor:
     """Training/prefill path: decompress K/V and run standard causal MHA
     (on a mesh: this rank's heads, whose ``w_uk``/``w_uv`` columns it
-    holds, then ``wo``'s rows and the sum over ``model``)."""
+    holds, then ``wo``'s rows and the sum over ``model``). Keys outside
+    ``kv_mask`` (left padding) are masked."""
     b, s, _ = x.shape
     h = cfg.n_heads // PL.size_of(mesh, ("model",)) if PL.tp(mesh) \
         else cfg.n_heads
@@ -510,8 +570,8 @@ def mla_attention_train(
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         b, s, h, cfg.qk_rope_dim)], dim=-1)
-    out = _attend_chunked(q_full, k_full, v, positions, positions, None, True,
-                          cfg.q_chunk)
+    out = _attend_chunked(q_full, k_full, v, positions, positions, kv_mask,
+                          True, cfg.q_chunk, scale=cfg.softmax_scale)
     out = out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"].to(dt)
     return PL.sum_over(out, mesh, ("model",)) if PL.tp(mesh) else out
 
@@ -545,8 +605,7 @@ def mla_attention_decode(
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)        # absorb W_uk
     s_lat = torch.einsum("bshr,bkr->bhsk", q_lat.float(), c_kv_cache.float())
     s_pe = torch.einsum("bshn,bkn->bhsk", q_pe.float(), k_pe_cache.float())
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-    scores = (s_lat + s_pe) * scale
+    scores = (s_lat + s_pe) * cfg.softmax_scale
     scores = torch.where(kv_mask[:, None, None, :], scores, MASK_VALUE)
     p = torch.softmax(scores, dim=-1).to(dt)
     o_lat = torch.einsum("bhsk,bkr->bshr", p, c_kv_cache.to(dt))  # (B,1,H,r)
@@ -575,8 +634,8 @@ def mla_decode_local(params: Params, x: torch.Tensor, position: torch.Tensor,
     q_pe = PL.gather_over(q_pe, 2, mesh, m_ax)
     s_lat = torch.einsum("bshr,bkr->bhsk", q_lat.float(), c_kv_cache.float())
     s_pe = torch.einsum("bshn,bkn->bhsk", q_pe.float(), k_pe_cache.float())
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-    scores = torch.where(kv_mask[:, None, None, :], (s_lat + s_pe) * scale,
+    scores = torch.where(kv_mask[:, None, None, :],
+                         (s_lat + s_pe) * cfg.softmax_scale,
                          MASK_VALUE)
     o_lat = _merge_heads(scores, c_kv_cache.to(dt), mesh, seq_axes,
                          "bhsk,bkr->bshr").to(dt)            # (B,1,H,r)

@@ -30,6 +30,23 @@ collectives are identities. On a larger mesh (``_moe_local``):
     rank's rows of ``shared_w_out`` lie on different ranks), and the
     output is summed over ``model``.
 
+Dropless routing and an expert share (``capacity_factor=None``,
+``moe_dropless``). The layer is told which experts it holds
+(``n_held`` of them from ``first_held``: one card's share of an
+expert-parallel deployment, with no exchange on one card), routes every
+token over all ``n_experts`` and computes the held experts' pairs only,
+every one of them: the pairs are sorted by expert, the per-expert offsets
+stay on the card, and the experts run as one grouped product over rows of
+varying length (``kernels.grouped_gemm``), so the layer never syncs with
+the host. A token's pairs are summed in a fixed order with float32 sums,
+in the combine and in the token gather's backward, so two passes give the
+same bits. What the absent experts would add is left out. The gate is the
+softmax score itself where ``norm_topk_prob`` is False (DeepSeek's
+``greedy`` gating, scale 1), and ``aux_alpha`` adds the sequence-level
+balance loss over the sequences' valid positions. ``STATS`` counts the
+layer's work on the card and files ``moe.route`` and ``moe.experts``
+spans when a ``Telemetry`` is attached.
+
 Dropped pairs. A (token, expert) pair whose rank in its expert is
 ``>= cap`` is dropped, and only such pairs. The reference routes every
 dropped pair to the real slot ``(0, cap - 1)`` with a ``.at[].set`` that
@@ -41,41 +58,54 @@ the table, sliced off before the experts run.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.grouped_gemm import grouped_mm
 from repro_torch.models import parallel as PL
 from repro_torch.models.layers import _init
+from repro_torch.obs.spans import PhaseClock
 
 Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    n_experts: int
+    n_experts: int                 # the router's width
     top_k: int
     d_ff: int                      # per-expert hidden
     n_shared: int = 0              # shared (always-on) experts
-    capacity_factor: float = 1.25
+    capacity_factor: Optional[float] = 1.25   # None: dropless
     router_dtype: torch.dtype = torch.float32
     # expert-parallel weight layout on a mesh (the reference's):
     #   "fsdp": E on model, d_ff ZeRO-sharded on data (training)
     #   "2d":   E on model AND d/f dims on data, fully resident (decode)
     ep_mode: str = "fsdp"
+    # the experts this layer holds (dropless only): n_held from first_held
+    n_held: Optional[int] = None   # None: all n_experts
+    first_held: int = 0
+    norm_topk_prob: bool = True    # renormalize the top-k gates to sum 1
+    aux_alpha: float = 0.0         # sequence-level balance loss weight
+
+    @property
+    def held(self) -> int:
+        return self.n_experts if self.n_held is None else self.n_held
 
 
 def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig,
              device="cuda", dtype: torch.dtype = torch.float32) -> Params:
-    e, f = cfg.n_experts, cfg.d_ff
+    e, f = cfg.held, cfg.d_ff
 
     def w(shape, scale=None):
         return _init(gen, shape, scale, device=device, dtype=dtype)
 
     p = {
-        "router": w((d_model, e), 0.02),
+        "router": w((d_model, cfg.n_experts), 0.02),
         # fused gate+up per expert: (E, d, 2f); down: (E, f, d)
         "w_in": w((e, d_model, 2 * f)),
         "w_out": w((e, f, d_model), 1.0 / math.sqrt(f)),
@@ -95,13 +125,25 @@ def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
 
 def route(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(gate, idx), each (T, k): the renormalized top-k router
-    probabilities and their experts, best first (``torch.topk`` sorted, as
-    ``jax.lax.top_k``)."""
+    """(gate, idx), each (T, k): the top-k router probabilities
+    (renormalized with ``norm_topk_prob``) and their experts, best first
+    (``torch.topk`` sorted, as ``jax.lax.top_k``)."""
+    return _top_k(_scores(x, router_w, cfg), cfg)
+
+
+def _scores(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig
+            ) -> torch.Tensor:
+    """(T, E) router probabilities in ``router_dtype``."""
     rd = cfg.router_dtype
-    probs = torch.softmax(x.to(rd) @ router_w.to(rd), dim=-1)   # (T, E)
+    return torch.softmax(x.to(rd) @ router_w.to(rd), dim=-1)
+
+
+def _top_k(probs: torch.Tensor, cfg: MoEConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     gate, idx = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
-    return gate / gate.sum(dim=-1, keepdim=True), idx
+    if cfg.norm_topk_prob:
+        gate = gate / gate.sum(dim=-1, keepdim=True)
+    return gate, idx
 
 
 def dispatch(idx: torch.Tensor, gate: torch.Tensor, cfg: MoEConfig, cap: int,
@@ -237,6 +279,10 @@ def moe_ffn(
 ) -> torch.Tensor:
     """On a mesh ``x`` holds this rank's block of tokens over ``data_axes``
     (the reference's ``shard_map`` token split)."""
+    if cfg.capacity_factor is None or cfg.n_held is not None:
+        raise ValueError("moe_ffn routes with a capacity over every expert; "
+                         "a dropless layer or an expert share is "
+                         "moe_dropless")
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -262,6 +308,182 @@ def moe_ffn(
         h = _swiglu_halves(xt @ params["shared_w_in"].to(dt))
         out = out + h @ params["shared_w_out"].to(dt)
     return out.reshape(shape)
+
+
+class MoEStats:
+    """The dropless layer's counters and spans.
+
+    Counted at every pass of the layer (a recomputation under remat
+    included): ``tokens`` (a plain integer), and on the card, so that
+    counting takes no sync, the pairs computed here (``pairs_held``), the
+    largest number of them one expert got in one pass
+    (``max_expert_load``) and the held experts' pairs left out
+    (``dropped``: the held pairs of the router's top-k, counted from its
+    indices, less the rows the grouped product ran, which the sort's row
+    bound ``_held_rows`` caps; 0 while that bound holds). ``read()``
+    returns all four as integers (it reads the card: call it after the
+    steps). With ``telemetry`` set, each
+    pass files the phases ``moe.route`` and ``moe.experts`` in its span
+    tracker, with the CUDA-event device ms of each on the card."""
+
+    def __init__(self):
+        self.telemetry = None
+        self.reset()
+
+    def reset(self) -> None:
+        self.tokens = 0
+        self._dev: Dict[torch.device, torch.Tensor] = {}
+        self._clocks = threading.local()
+
+    def add(self, tokens: int, counts: torch.Tensor) -> None:
+        """``counts``: int64 (pairs computed, largest expert load, held
+        pairs left out) of one pass."""
+        self.tokens += tokens
+        acc = self._dev.get(counts.device)
+        if acc is None:
+            self._dev[counts.device] = counts.clone()
+            return
+        acc[1] = torch.maximum(acc[1], counts[1])
+        acc[0::2] += counts[0::2]
+
+    def read(self) -> Dict[str, int]:
+        out = {"tokens": self.tokens, "pairs_held": 0, "max_expert_load": 0,
+               "dropped": 0}
+        for acc in self._dev.values():
+            pairs, load, dropped = acc.tolist()
+            out["pairs_held"] += pairs
+            out["max_expert_load"] = max(out["max_expert_load"], load)
+            out["dropped"] += dropped
+        return out
+
+    def clock(self, device: torch.device) -> Optional[PhaseClock]:
+        """The calling thread's phase clock (None without telemetry)."""
+        tel = self.telemetry
+        if tel is None:
+            return None
+        clock = getattr(self._clocks, "clock", None)
+        if clock is None or clock.tracker is not tel.spans:
+            event = (functools.partial(torch.cuda.Event, enable_timing=True)
+                     if device.type == "cuda" else None)
+            clock = self._clocks.clock = PhaseClock(tel.spans, event)
+        return clock
+
+
+STATS = MoEStats()
+
+
+def balance_loss(probs: torch.Tensor, idx: torch.Tensor,
+                 valid: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """DeepSeek's sequence-level balance loss ``alpha * mean_b sum_i
+    f_bi P_bi`` over the valid positions t of each sequence b (n_b of
+    them): ``f_bi = E / (K n_b) * #{(t, k): idx_tk = i}`` and ``P_bi =
+    mean_t probs_ti``. ``probs`` (B, S, E), ``idx`` (B, S, K), ``valid``
+    (B, S) bool. A sequence with no valid position adds 0."""
+    e, k = cfg.n_experts, cfg.top_k
+    w = valid.to(probs.dtype)
+    n = w.sum(1).clamp(min=1.0)[:, None]                         # (B, 1)
+    experts = torch.arange(e, device=idx.device)
+    hits = (idx[..., None] == experts).sum(2).to(probs.dtype)    # (B, S, E)
+    f = (hits * w[..., None]).sum(1) * (e / k) / n
+    p = (probs * w[..., None]).sum(1) / n
+    return cfg.aux_alpha * (f * p).sum(-1).mean()
+
+
+class _PairGather(torch.autograd.Function):
+    """``x``'s rows for the pairs ``order`` (indices into the ``T * k``
+    pairs of the router's top-k; a pair's token is ``pair // k``). The
+    backward puts each pair's gradient in its own slot of a ``(T, k)``
+    table and sums over ``k`` with float32 sums, rounding once, in a fixed
+    order: ``index_select``'s own backward adds a token's pairs into
+    ``x``'s dtype with atomics, one rounding a pair, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, order, k: int):
+        ctx.save_for_backward(order)
+        ctx.k = k
+        ctx.t = x.shape[0]
+        return x.index_select(0, order // k)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (order,) = ctx.saved_tensors
+        slots = dy.new_zeros((ctx.t * ctx.k, dy.shape[-1]))
+        slots.index_copy_(0, order, dy)
+        return slots.view(ctx.t, ctx.k, -1).sum(1), None, None
+
+
+def _combine_pairs(y: torch.Tensor, g: torch.Tensor, order: torch.Tensor,
+                   t: int, k: int) -> torch.Tensor:
+    """(T, d) float32: each token's gated pair outputs ``y * g`` summed in a
+    fixed order (each pair in its own slot of a ``(T, k)`` table, then a sum
+    over ``k``), where ``index_add`` would add them with atomics."""
+    slots = torch.zeros((t * k, y.shape[-1]), dtype=torch.float32,
+                        device=y.device)
+    slots = slots.index_copy(0, order, y.float() * g[:, None])
+    return slots.view(t, k, -1).sum(1)
+
+
+def _held_rows(tokens: int, cfg: MoEConfig) -> int:
+    """Rows of the grouped product's operands: a token picks at most
+    ``min(top_k, held)`` held experts, so every held pair lies in the first
+    this many of the pairs sorted by expert (the bound that dropless with
+    no host sync needs)."""
+    return tokens * min(cfg.top_k, cfg.held)
+
+
+def moe_dropless(params: Params, x: torch.Tensor, cfg: MoEConfig,
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(output, balance loss or None) of the dropless layer over ``x`` (B,
+    S, d) or (T, d): every token routed over all ``n_experts``; the held
+    experts' pairs, all of them, through ``grouped_mm``; the shared experts
+    added. ``mask`` (B, S): the positions the balance loss counts (default
+    all). No host sync."""
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    t, dt = xt.shape[0], x.dtype
+    held, k = cfg.held, cfg.top_k
+    clock = STATS.clock(xt.device)
+    if clock is not None:
+        clock.start()
+        clock.mark()
+    probs = _scores(xt, params["router"], cfg)                  # (T, E)
+    gate, idx = _top_k(probs, cfg)
+    local = (idx - cfg.first_held).reshape(-1)                  # (T k,)
+    mine = (local >= 0) & (local < held)
+    key = torch.where(mine, local, held)            # other experts sort last
+    rows = _held_rows(t, cfg)
+    order = torch.argsort(key, stable=True)[:rows]
+    sk = key[order]
+    offsets = torch.searchsorted(sk, torch.arange(held + 1, device=sk.device,
+                                                  dtype=sk.dtype))
+    g = torch.where(sk < held, gate.reshape(-1).index_select(0, order), 0.0)
+    aux = None
+    if cfg.aux_alpha:
+        b = shape[0] if len(shape) == 3 else 1
+        valid = (torch.ones((b, t // b), dtype=torch.bool, device=x.device)
+                 if mask is None else mask.reshape(b, t // b))
+        aux = balance_loss(probs.reshape(b, t // b, -1),
+                           idx.reshape(b, t // b, k), valid, cfg)
+    loads = offsets[1:] - offsets[:-1]
+    STATS.add(t, torch.stack([offsets[-1], loads.max(),
+                              mine.sum() - offsets[-1]]))
+    if clock is not None:
+        clock.mark("route")
+        clock.lap("moe.route")
+    h = _swiglu_halves(grouped_mm(_PairGather.apply(xt, order, k),
+                                  params["w_in"].to(dt), offsets))
+    y = grouped_mm(h, params["w_out"].to(dt), offsets)         # (rows, d)
+    out = _combine_pairs(y, g, order, t, k).to(dt)
+    if "shared_w_in" in params:
+        hs = _swiglu_halves(xt @ params["shared_w_in"].to(dt))
+        out = out + hs @ params["shared_w_out"].to(dt)
+    if clock is not None:
+        clock.mark("experts")
+        clock.lap("moe.experts")
+        clock.commit()
+    return out.reshape(shape), aux
 
 
 def moe_ref(params: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

@@ -29,6 +29,15 @@ rank's SHARE of the global mean loss (``models.parallel``'s convention).
 their caches are this rank's block of positions over ``model`` (every
 axis where the batch does not split): prefill re-blocks each layer's k/v
 columns by position with an all-to-all over ``model``.
+
+Leading dense layers (``first_k_dense``, FFN width ``dense_d_ff``) are
+stacked apart from the rest (``dense_blocks``). A dropless MoE
+(``moe.capacity_factor=None``) adds its balance loss into ``loss_fn``.
+Given a ``mask`` of the positions that count (left-padded histories),
+``loss_fn`` masks the other positions as keys, leaves them out of the
+cross-entropy and of the balance statistics, and averages over the valid
+positions; ``history_lm_inputs`` makes tokens, targets and that mask of a
+feed batch.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import parallel as PL
 from repro_torch.models.embedding import row_partial
-from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
+from repro_torch.models.moe import MoEConfig, init_moe, moe_dropless, moe_ffn
 from repro_torch.tree import tree_leaves, to_parameter_dict
 
 Params = Dict[str, Any]
@@ -66,6 +75,10 @@ class TransformerConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    rope_scaling: Optional[L.YaRN] = None
+    # leading dense layers, stacked apart (FFN width dense_d_ff, else d_ff)
+    first_k_dense: int = 0
+    dense_d_ff: Optional[int] = None
     # execution
     compute_dtype: torch.dtype = torch.bfloat16
     q_chunk: int = 512
@@ -90,6 +103,7 @@ class TransformerConfig:
             kv_lora_rank=self.kv_lora_rank, qk_nope_dim=self.qk_nope_dim,
             qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim,
             rope_theta=self.rope_theta, q_chunk=self.q_chunk,
+            yarn=self.rope_scaling,
         )
 
     def param_count(self) -> int:
@@ -98,28 +112,33 @@ class TransformerConfig:
         return sum(t.numel() for t in tree_leaves(init(self, device="meta")))
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: only top-k + shared experts count)."""
+        """Active params per token (MoE: only the routed experts' expected
+        pairs a token and the shared experts count). With an expert share
+        the parameters hold the held experts, of which a token reaches
+        ``top_k * held / n_experts`` on average."""
         total = self.param_count()
         if self.moe is None:
             return total
-        e, k = self.moe.n_experts, self.moe.top_k
-        expert_p = self.n_layers * (
-            self.moe.n_experts * (3 * self.d_model * self.moe.d_ff)
+        e, k, held = self.moe.n_experts, self.moe.top_k, self.moe.held
+        expert_p = (self.n_layers - self.first_k_dense) * (
+            held * (3 * self.d_model * self.moe.d_ff)
         )
         active_expert_p = expert_p * k // e
         return total - expert_p + active_expert_p
 
 
 def _init_block(gen: torch.Generator, cfg: TransformerConfig, device,
-                dtype: torch.dtype) -> Params:
+                dtype: torch.dtype, dense: bool = False) -> Params:
     if cfg.attention == "mla":
         attn = L.init_mla(gen, cfg.mla_cfg, device, dtype)
     else:
         attn = L.init_gqa(gen, cfg.attn_cfg, device, dtype)
-    if cfg.moe is not None:
+    if cfg.moe is not None and not dense:
         ffn = init_moe(gen, cfg.d_model, cfg.moe, device, dtype)
     else:
-        ffn = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, device, dtype)
+        ffn = L.init_swiglu(gen, cfg.d_model,
+                            (cfg.dense_d_ff or cfg.d_ff) if dense else
+                            cfg.d_ff, device, dtype)
     return {
         "attn": attn,
         "ffn": ffn,
@@ -136,14 +155,31 @@ def init(cfg: TransformerConfig, seed: int = 0, device="cuda",
     leaf is then drawn in float32 a block of rows at a time and cast
     (``layers._init``), so no float32 copy of the model ever exists."""
     gen = L.generator(device, seed)
-    return to_parameter_dict({
-        "embed": L._init(gen, (cfg.vocab, cfg.d_model), 0.02, device, dtype),
-        "blocks": L.stack_blocks(
-            cfg.n_layers, lambda: _init_block(gen, cfg, device, dtype)),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "unembed": L._init(gen, (cfg.vocab, cfg.d_model), 0.02, device,
-                           dtype),
-    })
+    tree = {"embed": L._init(gen, (cfg.vocab, cfg.d_model), 0.02, device,
+                             dtype)}
+    if cfg.first_k_dense:
+        tree["dense_blocks"] = L.stack_blocks(
+            cfg.first_k_dense,
+            lambda: _init_block(gen, cfg, device, dtype, dense=True))
+    tree["blocks"] = L.stack_blocks(
+        cfg.n_layers - cfg.first_k_dense,
+        lambda: _init_block(gen, cfg, device, dtype))
+    tree["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device)
+    tree["unembed"] = L._init(gen, (cfg.vocab, cfg.d_model), 0.02, device,
+                              dtype)
+    return to_parameter_dict(tree)
+
+
+def layer_blocks(params: Params, cfg: TransformerConfig):
+    """Every layer's (block, dense) in order: the leading dense blocks,
+    then the stacked ones (dense too where ``cfg.moe`` is None)."""
+    out = []
+    if cfg.first_k_dense:
+        out += [(blk, True) for blk in L.unstack(params["dense_blocks"],
+                                                 cfg.first_k_dense)]
+    rest = L.unstack(params["blocks"], cfg.n_layers - cfg.first_k_dense)
+    return out + [(blk, cfg.moe is None) for blk in rest]
 
 
 # ---------------------------------------------------------------------------
@@ -151,24 +187,36 @@ def init(cfg: TransformerConfig, seed: int = 0, device="cuda",
 # ---------------------------------------------------------------------------
 
 def _ffn(cfg: TransformerConfig, block: Params, hn: torch.Tensor, mesh,
-         data_axes) -> torch.Tensor:
-    if cfg.moe is not None:
-        return moe_ffn(block["ffn"], hn, cfg.moe, mesh=mesh,
-                       data_axes=data_axes)
-    return L.swiglu(block["ffn"], hn, mesh)
+         data_axes, dense: bool = False,
+         mask: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(the FFN's output, a dropless MoE's balance loss or None)."""
+    if dense:
+        return L.swiglu(block["ffn"], hn, mesh), None
+    if cfg.moe.capacity_factor is None:
+        if PL.tp(mesh):
+            raise ValueError("the dropless layer runs on one card")
+        return moe_dropless(block["ffn"], hn, cfg.moe, mask)
+    return moe_ffn(block["ffn"], hn, cfg.moe, mesh=mesh,
+                   data_axes=data_axes), None
 
 
-def _block_fwd(cfg: TransformerConfig, mesh, data_axes, h: torch.Tensor,
-               block: Params, positions: torch.Tensor) -> torch.Tensor:
+def _block_fwd(cfg: TransformerConfig, mesh, data_axes, dense: bool,
+               h: torch.Tensor, block: Params, positions: torch.Tensor,
+               mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(the block's output, its MoE balance loss or None)."""
     hn = L.rms_norm(h, block["ln1"])
     if cfg.attention == "mla":
         attn_out = L.mla_attention_train(block["attn"], hn, positions,
-                                         cfg.mla_cfg, mesh)
+                                         cfg.mla_cfg, mesh, kv_mask=mask)
     else:
         attn_out = L.gqa_attention(block["attn"], hn, positions,
-                                   cfg.attn_cfg, mesh=mesh)
+                                   cfg.attn_cfg, kv_mask=mask, mesh=mesh)
     h = h + attn_out
-    return h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh, data_axes)
+    out, aux = _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh, data_axes,
+                    dense, mask)
+    return h + out, aux
 
 
 def _vocab_start(table: torch.Tensor, mesh) -> int:
@@ -200,31 +248,38 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def hidden_states(params: Params, tokens: torch.Tensor,
-                  cfg: TransformerConfig, mesh=None, data_axes=("data",)
-                  ) -> torch.Tensor:
+                  cfg: TransformerConfig, mesh=None, data_axes=("data",),
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(final-normed hidden states, the summed MoE balance loss or
+    None)."""
     b, s = tokens.shape
     h = _embed(params, tokens, cfg.compute_dtype, mesh)
     positions = _positions(b, s, h.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for block in L.unstack(params["blocks"], cfg.n_layers):
-        if remat:
-            h = checkpoint(_block_fwd, cfg, mesh, data_axes, h, block,
-                           positions, use_reentrant=False)
-        else:
-            h = _block_fwd(cfg, mesh, data_axes, h, block, positions)
-    return L.rms_norm(h, params["final_norm"])
+    aux = None
+    for block, dense in layer_blocks(params, cfg):
+        args = (cfg, mesh, data_axes, dense, h, block, positions, mask)
+        h, a = (checkpoint(_block_fwd, *args, use_reentrant=False) if remat
+                else _block_fwd(*args))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return L.rms_norm(h, params["final_norm"]), aux
 
 
 def _xent_sum(logits: torch.Tensor, targets: torch.Tensor, mesh=None,
-              v_start: int = 0) -> torch.Tensor:
-    """Summed cross-entropy; on a mesh ``logits`` are this rank's vocabulary
-    columns from ``v_start``, and the row max, the sum of exponentials and
-    the target's logit are reduced over ``model``."""
+              v_start: int = 0, weight: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Summed cross-entropy (each position's times ``weight``, one card
+    only); on a mesh ``logits`` are this rank's vocabulary columns from
+    ``v_start``, and the row max, the sum of exponentials and the target's
+    logit are reduced over ``model``."""
     logits = logits.float()
     if not PL.tp(mesh):
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        return torch.sum(logz - gold)
+        per = logz - gold
+        return torch.sum(per if weight is None else per * weight)
     m_ax = ("model",)
     v_loc = logits.shape[-1]
     big = PL.max_over(logits.amax(dim=-1, keepdim=True), mesh, m_ax)
@@ -237,22 +292,32 @@ def _xent_sum(logits: torch.Tensor, targets: torch.Tensor, mesh=None,
 
 
 def _chunk_loss(h: torch.Tensor, unemb: torch.Tensor, targets: torch.Tensor,
-                mesh=None, v_start: int = 0) -> torch.Tensor:
-    return _xent_sum(h @ unemb.T, targets, mesh, v_start)
+                mesh=None, v_start: int = 0,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _xent_sum(h @ unemb.T, targets, mesh, v_start, weight)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: TransformerConfig, mesh=None, data_axes=("data",)
-            ) -> torch.Tensor:
-    """Mean next-token cross-entropy; the vocab projection in sequence
-    chunks of ``loss_chunk`` (each recomputed in the backward under
-    ``remat``, so one chunk's logits live at a time). On a mesh: this
-    rank's share of the global mean (module docstring)."""
-    h = hidden_states(params, tokens, cfg, mesh, data_axes)   # (B, S, D)
+            cfg: TransformerConfig, mesh=None, data_axes=("data",),
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy, plus the MoE balance loss of a
+    dropless layer; the vocab projection in sequence chunks of
+    ``loss_chunk`` (each recomputed in the backward under ``remat``, so
+    one chunk's logits live at a time). With ``mask`` (B, S, one card
+    only) the mean is over the valid positions (module docstring). On a
+    mesh: this rank's share of the global mean (module docstring)."""
+    h, aux = hidden_states(params, tokens, cfg, mesh, data_axes,
+                           mask)                               # (B, S, D)
     b, s, _ = h.shape
     unemb = params["unembed"].to(cfg.compute_dtype)
     n = b * s
     v_start = 0
+    weight = None
+    if mask is not None:
+        if PL.tp(mesh):
+            raise ValueError("a masked loss runs on one card")
+        weight = mask.to(torch.float32)
+        n = weight.sum().clamp(min=1.0)
     if PL.tp(mesh):
         # the global token count (b * s on each batch block) times the
         # ranks that compute each block's loss: this rank's share
@@ -260,15 +325,30 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
         v_start = _vocab_start(params["unembed"], mesh)
     lc = min(cfg.loss_chunk, s)
     if s % lc:                                            # ragged: no chunking
-        return _xent_sum(h @ unemb.T, targets, mesh, v_start) / n
-    remat = cfg.remat and torch.is_grad_enabled()
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lo in range(0, s, lc):
-        args = (h[:, lo:lo + lc], unemb, targets[:, lo:lo + lc], mesh,
-                v_start)
-        total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
-                         if remat else _chunk_loss(*args))
-    return total / n
+        loss = _xent_sum(h @ unemb.T, targets, mesh, v_start, weight) / n
+    else:
+        remat = cfg.remat and torch.is_grad_enabled()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lo in range(0, s, lc):
+            args = (h[:, lo:lo + lc], unemb, targets[:, lo:lo + lc], mesh,
+                    v_start, None if weight is None else weight[:, lo:lo + lc])
+            total = total + (checkpoint(_chunk_loss, *args,
+                                        use_reentrant=False)
+                             if remat else _chunk_loss(*args))
+        loss = total / n
+    return loss if aux is None else loss + aux
+
+
+def history_lm_inputs(batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(tokens, targets, mask) of a dense feed batch read as next-item
+    prediction: the history's item ids are the tokens, each position's
+    target is the next event's item and the last position's the
+    candidate's, and the mask is the history's (left-padded rows)."""
+    tokens = batch["uih_item_id"]
+    targets = torch.cat([tokens[:, 1:], batch["cand_item_id"][:, None].to(
+        tokens.dtype)], dim=1)
+    return tokens, targets, batch["uih_mask"]
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +388,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     h = _embed(params, tokens, dt)
     positions = _positions(b, s, h.device)
     cache = init_kv_cache(cfg, b, s, device=h.device)
-    for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+    for i, (block, dense) in enumerate(layer_blocks(params, cfg)):
         hn = L.rms_norm(h, block["ln1"])
         if cfg.attention == "mla":
             c_kv, k_pe = L.mla_new_cache_entries(block["attn"], hn,
@@ -325,7 +405,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             cache["k"][i], cache["v"][i] = k, v
         h = h + attn_out
         h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
-                     data_axes)
+                     data_axes, dense)[0]
     return _logits(params, h[:, -1, :], dt), cache
 
 
@@ -342,7 +422,7 @@ def _prefill_local(params: Params, tokens: torch.Tensor,
     positions = _positions(b, s, h.device)
     cache = init_kv_cache(cfg, b, s // PL.size_of(mesh, seq_axes),
                           device=h.device)
-    for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+    for i, (block, dense) in enumerate(layer_blocks(params, cfg)):
         hn = L.rms_norm(h, block["ln1"])
         if cfg.attention == "mla":
             c_kv, k_pe = L.mla_new_cache_entries(block["attn"], hn,
@@ -360,7 +440,7 @@ def _prefill_local(params: Params, tokens: torch.Tensor,
                 cache[name][i] = pos.reshape(cache[name][i].shape)
         h = h + attn_out
         h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
-                     data_axes)
+                     data_axes, dense)[0]
     return _logits(params, h[:, -1, :], dt), cache
 
 
@@ -381,7 +461,7 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
     seq_axes = cache_seq_axes(mesh, data_axes) if tp else ()
     h = _embed(params, next_token, dt, mesh)[:, None, :]     # (B, 1, D)
     pos = position[:, None]
-    for i, block in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+    for i, (block, dense) in enumerate(layer_blocks(params, cfg)):
         hn = L.rms_norm(h, block["ln1"])
         if cfg.attention == "mla":
             c_new, pe_new = L.mla_new_cache_entries(block["attn"], hn, pos,
@@ -405,6 +485,6 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
                                           cfg.attn_cfg, mesh, seq_axes)
         h = h + attn_out
         h = h + _ffn(cfg, block, L.rms_norm(h, block["ln2"]), mesh,
-                     data_axes)
+                     data_axes, dense)[0]
     return _logits(params, h[:, 0, :], dt), cache
 

@@ -268,7 +268,7 @@ def test_mla_decode_equals_train_at_the_last_position():
     _close(got, want)
     # and the reference's absorbed form agrees on the same inputs
     jp = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
-    jcfg = JL.MLAConfig(**dataclasses.asdict(cfg))
+    jcfg = JL.MLAConfig(**_shared_fields(cfg, JL.MLAConfig))
     jwant = JL.mla_attention_decode(
         jp, jnp.asarray(x[:, -1:].numpy()), jnp.asarray(pos[:, -1:].numpy()),
         jnp.asarray(c_kv.numpy()), jnp.asarray(k_pe.numpy()),
@@ -529,12 +529,28 @@ def test_sample_subgraph_is_byte_equal_to_the_reference():
 # configs and interop
 # ---------------------------------------------------------------------------
 
-def _fields(cfg):
-    out = {}
+def _shared_fields(cfg, ref_cls) -> dict:
+    """The port config's fields that the reference's class has; the port's
+    others (features the reference lacks) must sit at their defaults."""
+    names = {f.name for f in dataclasses.fields(ref_cls)}
     for f in dataclasses.fields(cfg):
+        if f.name not in names:
+            assert getattr(cfg, f.name) == f.default, f.name
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k in names}
+
+
+def _fields(cfg, ref=None):
+    """``cfg``'s fields as comparable values; with ``ref`` (the reference's
+    config) only the fields the reference has, the port's others required
+    at their defaults (``_shared_fields``)."""
+    out = {}
+    names = None if ref is None else set(_shared_fields(cfg, type(ref)))
+    for f in dataclasses.fields(cfg):
+        if names is not None and f.name not in names:
+            continue
         v = getattr(cfg, f.name)
         if dataclasses.is_dataclass(v):
-            v = _fields(v)
+            v = _fields(v, None if ref is None else getattr(ref, f.name))
         elif hasattr(v, "dtype") or isinstance(v, (torch.dtype, type)):
             v = str(jnp.dtype(v) if not isinstance(v, torch.dtype)
                     else v).replace("torch.", "")
@@ -548,13 +564,14 @@ def test_configs_equal_the_reference_field_for_field(arch):
     assert (t.arch_id, t.family, t.notes) == (j.arch_id, j.family, j.notes)
     assert t.shapes == j.shapes
     for which in ("full", "smoke"):
-        assert _fields(getattr(t, which)) == _fields(getattr(j, which)), which
+        tc, jc = getattr(t, which), getattr(j, which)
+        assert _fields(tc, jc) == _fields(jc), which
     assert t.full.param_count() == j.full.param_count()
     if t.family == "lm":
         assert t.full.active_param_count() == j.full.active_param_count()
         assert t.full.attn_cfg.qk_norm == j.full.attn_cfg.qk_norm
-        assert dataclasses.asdict(t.full.mla_cfg).items() <= \
-            dataclasses.asdict(j.full.mla_cfg).items()
+        assert _shared_fields(t.full.mla_cfg, type(j.full.mla_cfg)).items() \
+            <= dataclasses.asdict(j.full.mla_cfg).items()
 
 
 @pytest.mark.parametrize("case", ["dense-for-moe", "gqa-for-mla",
